@@ -14,7 +14,8 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
 0. device: needs CUDA (raises otherwise); prints the card, its power limit,
    the CUDA, nvcc and PyYAML versions;
 1. builds the kernels from the checkout's sources, prints the build time
-   and each kernel's registers and spills;
+   and each kernel's registers and spills, K2 as its two bodies (one
+   thread per column for N <= 4, ``bvp_forward_team`` for N = 8);
 2. K1 against its plain PyTorch version, float32 on the card, nstr 4/8/16
    and the bench shape, with ssa forced to 0 and 0.999999 in some entries:
    max|err| <= 3e-5 max|ref| per output;
@@ -33,8 +34,8 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
    the card, nstr 4/8/16: K1 beam and K4 (thermal on and off, beam on and
    off, delta-M scaled Henyey-Greenstein moments with g = 0.2 and 0.8, ssa
    with 0 and 0.999999 entries, the beam cosine set onto a resonance
-   1/lam_k in some entries) to phase 2's bound, K5 at L = 100 and 37 on a
-   beam-and-moments solve to phase 3's;
+   1/lam_k in some entries) to phase 2's bound, K4 also printed bit-equal
+   or not, K5 at L = 100 and 37 on a beam-and-moments solve to phase 3's;
 7. ``aerosol_16str_beam`` (``bench_extra.py:109-119``) at full width: K4,
    K2 and K5 each launched once per call, K1 and K3 not; fluxes against
    the float64 plain path on every column: 1e-4 max|flux| where no layer
@@ -43,8 +44,10 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
    float32's resonance floor, their distance from the float64 answer
    printed (see ``RESONANCE_MARGIN``); 10 timed steps; each kernel
    against its plain version on the path's own inputs, every column, and
-   timed; then K3 against K5 + the flux epilogue on the same inputs at N =
-   8 (timed and compared, not used);
+   timed, with K4's and K2's registers and spills and K4's issue-rate
+   floor without multiply-add contraction (twice its operation bound);
+   then K3 against K5 + the flux epilogue on the same inputs at N = 8
+   (timed and compared, not used);
 8. ``sw_lbl_4str_beam`` (``bench_extra.py:97-107``) at full width: K1 beam,
    K2 and K3 each launched once, the same checks and timings as phase 7;
 9. amars_sw through the port (float32): TOA down-flux within 0.5 of
@@ -56,7 +59,9 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
     together amplify float32 rounding, 1e-3 of max|ref|) and against K2 +
     K3 (flux mode; its raw bottom (a, b) contracted against K3's
     bottom-level sums) or K2 + K5 ((a, b) mode) within 3e-6 of max|ref|
-    per output (``tests/test_pallas_kernels.py:121-142``): both modes at
+    per output (``tests/test_pallas_kernels.py:121-142``; K2's team body
+    at N = 8 forms every entry as K6's per-thread layer step does, so the
+    (a, b) mode is bit-equal to K2 + K5 at every N): both modes at
     nstr 4/8/16, L = 100 and 37, then on the BVP inputs of the bench
     (flux), aerosol ((a, b)) and sw_lbl (flux) paths; each timed against
     the two-kernel pair; on the near columns K2 + K5 against the plain K2
@@ -183,7 +188,8 @@ def ptxas_summary(log: str) -> dict[str, str]:
         m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?$",
                       line.strip())
         if m:
-            k = re.search(r"(stage1_isotropic|stage1_general|bvp_forward|"
+            k = re.search(r"(stage1_isotropic|stage1_general|"
+                          r"bvp_forward_team|bvp_forward|"
                           r"bvp_backward_flux|bvp_backward|bvp_fused)"
                           r"_kernelILi(\d+)E(Lb([01])E)?", m.group(1))
             cur = None
@@ -784,16 +790,18 @@ def main() -> None:
                       ang.lam_tables.shape[0] - 1).contiguous()
         a4 = (ssa, pmom, dtau, btop, slope, ang)
         mur4 = resonant(K.stage1_general_plain(*a4)[2])
-        e4 = []
+        e4, k4_equal = [], []
         for thermal in (True, False):
             for beam in (True, False):
                 kw = dict(thermal=thermal)
                 if beam:
                     kw.update(fbeam=fbeam, mur=mur4, lam0=lam0)
+                got = K.stage1_general(*a4, **kw)
+                ref = K.stage1_general_plain(*a4, **kw)
                 e4.append(stage1_check(
-                    K.stage1_general(*a4, **kw),
-                    K.stage1_general_plain(*a4, **kw),
-                    f"K4 nstr {nstr} thermal {thermal} beam {beam}"))
+                    got, ref, f"K4 nstr {nstr} thermal {thermal} beam {beam}"))
+                k4_equal.append(all(bool(torch.equal(g, r))
+                                    for g, r in zip(got, ref)))
         e5 = []
         for L5 in (100, 37):
             ds, prop, bc = extra_problem(2, 256, L5, nstr, 0.8, torch.float32,
@@ -805,7 +813,9 @@ def main() -> None:
                 K.bvp_backward_plain(s5.gp, s5.gm, s5.expd, md["P"], md["g"],
                                      ang), f"K5 nstr {nstr} L {L5}"))
         msgs.append(f"nstr {nstr}: K1 beam {e1:.2e}, K4 (thermal x beam) "
-                    + "/".join(f"{e:.2e}" for e in e4) + ", K5 L 100/37 "
+                    + "/".join(f"{e:.2e}" for e in e4) + " bit-equal "
+                    + "/".join("yes" if q else "no" for q in k4_equal)
+                    + ", K5 L 100/37 "
                     + "/".join(f"{e:.2e}" for e in e5))
     say("6", "max|err|/max|ref|: " + "; ".join(msgs)
              + f" (K1 beam, K4: {STAGE1_TOL}; K5: {BVP_TOL})")
@@ -865,6 +875,13 @@ def main() -> None:
                            (sol.gp, sol.gm, sol.expd, md["dblk"],
                             pr["albedo"], ang), {}, bvp_check, BVP_TOL,
                            kernel_flops("bvp_forward", N, L, B))
+        k2["ptxas"] = regs.get(("bvp_forward_team" if N == 8 else
+                                "bvp_forward") + f"<{N}>")
+        if nstr == 16:
+            recs[0]["ptxas"] = regs.get(f"stage1_general<{N}>")
+            # built with --fmad=false: a multiply-add issues as two
+            # instructions, so the issue-rate floor is twice the op bound
+            recs[0]["no_fma_floor_ms"] = 2 * recs[0]["flops"] / PEAK_F32 * 1e3
         bwd = (sol.gp, sol.gm, sol.expd, md["P"], md["g"])
         tops = (md["ptop_p"], md["ptop_m"], md["pb_p"], md["pb_m"])
         if nstr == 16:
@@ -890,7 +907,12 @@ def main() -> None:
                 (*bwd, *tops, ang), {}, bvp_check, BVP_TOL,
                 kernel_flops("bvp_backward_flux", N, L, B))]
             kernels_json.insert(1, recs[0])
-        say(phase, "per kernel, all columns: " + records_line(recs))
+        say(phase, "per kernel, all columns: " + records_line(recs)
+                   + "; ptxas: " + "; ".join(
+                       f"{r['name']} {r['ptxas']}" for r in recs if "ptxas" in r)
+                   + ("; K4 issue-rate floor without FMA "
+                      f"{recs[0]['no_fma_floor_ms']:.3f} ms" if nstr == 16
+                      else "") + f" [{card}]")
         del ds, prop, bc, pr, md, sol, bwd, tops, recs
         torch.cuda.empty_cache()
 

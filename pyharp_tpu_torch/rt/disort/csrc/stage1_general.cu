@@ -28,19 +28,28 @@
 // N = 8), against ~28 * 8 * (6N + 30) ~ 5e4 flops of Jacobi alone at N = 8,
 // plus the contraction (~N^2 nstr), the Cholesky, the products and three
 // N x N LUs (~N^3 each) -- some 100 flops per byte, well above the f32
-// ridge of ~20.  The design gives each thread one element (no cross-thread
-// traffic, loads and stores coalesced along B), keeps the matrices in
-// registers, recomputes Se and So from the moments where they are needed
-// again rather than keeping them live across the Jacobi sweeps, and runs
-// the sweeps as a rolled loop over a fully unrolled (p, q) schedule so all
-// matrix indices are static.  At N = 8 the live set (Lc, K, V: 3 x 64
-// floats) is beyond 255 registers and spills to local memory, which this
-// first version accepts.  The static tables (phase tables, Lam_l(mu_i),
-// mu, w and their roots) sit in one float32 device buffer read with
-// uniform addresses.
-// Built with --fmad=false, as K1 is: every operation rounds as in the plain
-// version, which keeps the Jacobi mode order and the Cholesky of a nearly
-// singular Uhat (ssa -> 1) those of the plain version.
+// ridge of ~20.  Built with --fmad=false, so each multiply-add issues as
+// two instructions: the issue-rate floor is about twice the operation bound.
+//
+// Design: one thread per element, the live set cut to fit 128 registers,
+// so an SM holds 16 warps (at 255 registers it would hold 8).  The time
+// is latency: 224 rotations per element at N = 8,
+// each a dependent chain of three divisions and two square roots, and long
+// dependent sums around them, so it is set by how many elements an SM
+// holds at once (tools/k4_designs.py builds this source at 4, 3 and 2
+// blocks of 128 threads per SM and times each; PERF.md).
+//  - The Jacobi matrix is kept packed (its lower triangle: 36 floats at
+//    N = 8, not 64), exactly, since every rotation writes both halves
+//    with the same value.
+//  - Neither the moments nor Lc stay live across the sweeps: the moments
+//    are loaded again and the Cholesky is recomputed, bit for bit.
+// A team of N lanes per element (each lane one row, the rotation's scalars
+// formed in every lane from shuffled entries, tools/k4_team.cu) is bit-
+// equal too but issue-bound: a warp issues the rotation's scalar chain for
+// four elements instead of 32, and it takes 3x as long at N = 8
+// (tools/k4_designs.py).
+// Every output element keeps the plain version's operation order (and
+// --fmad=false), so the kernel is bit-equal to stage1_general_plain.
 // chip_smoke.py phase 1 prints the registers and spills of every build.
 
 #include "common.cuh"
@@ -64,6 +73,17 @@ struct Tab {
   static constexpr int kSqmSqw = kSqm + N;
 };
 
+constexpr int kThreads = 128;
+// Resident blocks per SM the register allocation must allow (4: at most
+// 128 registers a thread); tools/k4_designs.py builds other counts.
+#ifndef PYHARP_K4_MIN_BLOCKS
+#define PYHARP_K4_MIN_BLOCKS 4
+#endif
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
 // sum over l of one parity (l0 = 0 even, 1 odd), l <= lmax, of
 // g_l * tab[l][i][j], g_0 = 1, accumulated in l order; 0 with no term.
 template <int N>
@@ -86,12 +106,25 @@ __device__ __forceinline__ float contract(const float* __restrict__ tab,
   return acc;
 }
 
-// One Jacobi rotation zeroing A[p][q], as jacobi._rotate.
+// Index of (i, j) in a packed symmetric matrix (lower triangle, by rows).
+__device__ __forceinline__ constexpr int sym(int i, int j) {
+  return i >= j ? i * (i + 1) / 2 + j : j * (j + 1) / 2 + i;
+}
+
+// A load the compiler cannot merge with an earlier one of the same address.
+__device__ __forceinline__ float reload(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// One Jacobi rotation zeroing A[P][Q], as jacobi._rotate, on the packed A.
 template <int N, int P, int Q>
-__device__ __forceinline__ void rotate(float (&A)[N][N], float (&V)[N][N]) {
-  const float apq = A[P][Q];
-  const float app = A[P][P];
-  const float aqq = A[Q][Q];
+__device__ __forceinline__ void rotate(float (&A)[N * (N + 1) / 2],
+                                       float (&V)[N][N]) {
+  const float apq = A[sym(P, Q)];
+  const float app = A[sym(P, P)];
+  const float aqq = A[sym(Q, Q)];
   const bool small = fabsf(apq) <= 1.17549435e-35f;   // float32 tiny * 1e3
   const float denom = small ? 1.0f : 2.0f * apq;
   const float tau = (aqq - app) / denom;
@@ -108,19 +141,14 @@ __device__ __forceinline__ void rotate(float (&A)[N][N], float (&V)[N][N]) {
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     if (r == P || r == Q) continue;
-    const float arp = A[r][P];
-    const float arq = A[r][Q];
-    const float nrp = c * arp - s * arq;
-    const float nrq = s * arp + c * arq;
-    A[r][P] = nrp;
-    A[P][r] = nrp;
-    A[r][Q] = nrq;
-    A[Q][r] = nrq;
+    const float arp = A[sym(r, P)];
+    const float arq = A[sym(r, Q)];
+    A[sym(r, P)] = c * arp - s * arq;
+    A[sym(r, Q)] = s * arp + c * arq;
   }
-  A[P][P] = new_pp;
-  A[Q][Q] = new_qq;
-  A[P][Q] = 0.0f;
-  A[Q][P] = 0.0f;
+  A[sym(P, P)] = new_pp;
+  A[sym(Q, Q)] = new_qq;
+  A[sym(P, Q)] = 0.0f;
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     const float vrp = V[r][P];
@@ -132,7 +160,8 @@ __device__ __forceinline__ void rotate(float (&A)[N][N], float (&V)[N][N]) {
 
 // One cyclic sweep: (p, q) = (0, 1), (0, 2), ..., (N-2, N-1).
 template <int N, int P = 0, int Q = 1>
-__device__ __forceinline__ void sweep(float (&A)[N][N], float (&V)[N][N]) {
+__device__ __forceinline__ void sweep(float (&A)[N * (N + 1) / 2],
+                                      float (&V)[N][N]) {
   if constexpr (P < N - 1) {
     rotate<N, P, Q>(A, V);
     if constexpr (Q + 1 < N) {
@@ -143,51 +172,28 @@ __device__ __forceinline__ void sweep(float (&A)[N][N], float (&V)[N][N]) {
   }
 }
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || a > b) ? a : b;
-}
-
+// The moments g_0 = 1, g_1..g_lmax of one element (0 above lmax).
 template <int N>
-__global__ void __launch_bounds__(128)
-stage1_general_kernel(const float* __restrict__ ssa_in,
-                      const float* __restrict__ pmom,
-                      const float* __restrict__ dtau_in,
-                      const float* __restrict__ btop_in,
-                      const float* __restrict__ slope_in,
-                      const float* __restrict__ fbeam_in,
-                      const float* __restrict__ mur_in,
-                      const float* __restrict__ lam0_in,
-                      float* __restrict__ gp_out, float* __restrict__ gm_out,
-                      float* __restrict__ lam_out, float* __restrict__ expd_out,
-                      float* __restrict__ y0p_out, float* __restrict__ y0m_out,
-                      float* __restrict__ y1_out, float* __restrict__ zp_out,
-                      float* __restrict__ zm_out, int nmom, int sweeps,
-                      int thermal, int beam, int64_t L, int64_t B,
-                      const float* __restrict__ tab) {
-  using T = Tab<N>;
-  const int64_t lb = L * B;
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= lb) return;
-  const int64_t layer = e / B;
-  const int64_t b = e - layer * B;
-  const int lmax = nmom < 2 * N - 1 ? nmom : 2 * N - 1;
-  const float* even = tab + T::kEven;
-  const float* odd = tab + T::kOdd;
-  const float* mu = tab + T::kMu;
-  const float* w = tab + T::kW;
-  const float* sqw = tab + T::kSqw;
-  const float* sqm = tab + T::kSqm;
-
-  const float ssa = ssa_in[e];
-  float g[2 * N];
+__device__ __forceinline__ void load_moments(const float* pmom, int64_t layer,
+                                             int64_t b, int64_t B, int nmom,
+                                             int lmax, float (&g)[2 * N]) {
   g[0] = 1.0f;
 #pragma unroll
   for (int l = 1; l < 2 * N; ++l) {
-    g[l] = l <= lmax ? pmom[(layer * nmom + (l - 1)) * B + b] : 0.0f;
+    g[l] = l <= lmax ? reload(pmom + (layer * nmom + (l - 1)) * B + b) : 0.0f;
   }
+}
 
-  // Uhat (lower triangle, as the Cholesky reads it) and its Cholesky factor
-  float Lc[N][N];
+// The Cholesky factor of Uhat (pivots floored at 1e-12), upper part zero.
+template <int N>
+__device__ __forceinline__ void cholesky_uhat(const float* tab,
+                                              const float (&g)[2 * N],
+                                              float ssa, int lmax,
+                                              float (&Lc)[N][N]) {
+  using T = Tab<N>;
+  const float* even = tab + T::kEven;
+  const float* sqw = tab + T::kSqw;
+  const float* sqm = tab + T::kSqm;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     float d;
@@ -211,10 +217,46 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
 #pragma unroll
     for (int i = 0; i < j; ++i) Lc[i][j] = 0.0f;
   }
+}
 
-  // K = Lc^T (Vhat Lc), symmetrised as jacobi_eigh does
-  float A[N][N];
+template <int N>
+__global__ void __launch_bounds__(kThreads, PYHARP_K4_MIN_BLOCKS)
+stage1_general_kernel(const float* __restrict__ ssa_in,
+                      const float* __restrict__ pmom,
+                      const float* __restrict__ dtau_in,
+                      const float* __restrict__ btop_in,
+                      const float* __restrict__ slope_in,
+                      const float* __restrict__ fbeam_in,
+                      const float* __restrict__ mur_in,
+                      const float* __restrict__ lam0_in,
+                      float* __restrict__ gp_out, float* __restrict__ gm_out,
+                      float* __restrict__ lam_out, float* __restrict__ expd_out,
+                      float* __restrict__ y0p_out, float* __restrict__ y0m_out,
+                      float* __restrict__ y1_out, float* __restrict__ zp_out,
+                      float* __restrict__ zm_out, int nmom, int sweeps,
+                      int thermal, int beam, int64_t L, int64_t B,
+                      const float* __restrict__ tab) {
+  using T = Tab<N>;
+  const int64_t lb = L * B;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= lb) return;
+  const int64_t layer = e / B;
+  const int64_t b = e - layer * B;
+  const int lmax = nmom < 2 * N - 1 ? nmom : 2 * N - 1;
+  const float* odd = tab + T::kOdd;
+  const float* mu = tab + T::kMu;
+  const float* w = tab + T::kW;
+  const float* sqw = tab + T::kSqw;
+  const float* sqm = tab + T::kSqm;
+  const float ssa = ssa_in[e];
+
+  // K = Lc^T (Vhat Lc), symmetrised, packed (lower triangle)
+  float A[N * (N + 1) / 2];
   {
+    float g[2 * N];
+    load_moments<N>(pmom, layer, b, B, nmom, lmax, g);
+    float Lc[N][N];
+    cholesky_uhat<N>(tab, g, ssa, lmax, Lc);
     float VL[N][N];
 #pragma unroll
     for (int k = 0; k < N; ++k) {
@@ -247,7 +289,7 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
 #pragma unroll
     for (int i = 0; i < N; ++i) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) A[i][j] = 0.5f * (K[i][j] + K[j][i]);
+      for (int j = 0; j <= i; ++j) A[sym(i, j)] = 0.5f * (K[i][j] + K[j][i]);
     }
   }
 
@@ -263,22 +305,27 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
   }
   float lam[N];
 #pragma unroll
-  for (int k = 0; k < N; ++k) lam[k] = sqrtf(clamp_min_nan(A[k][k], 1e-12f));
+  for (int k = 0; k < N; ++k) lam[k] = sqrtf(clamp_min_nan(A[sym(k, k)], 1e-12f));
 
-  // D = (Lc Y) / (sqrt(mu) sqrt(w)) per row
+  // the moments and Lc again (reloaded, not kept live across the sweeps)
+  float g[2 * N];
+  load_moments<N>(pmom, layer, b, B, nmom, lmax, g);
   float D[N][N];
+  {
+    float Lc[N][N];
+    cholesky_uhat<N>(tab, g, ssa, lmax, Lc);
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+    for (int i = 0; i < N; ++i) {
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float acc = Lc[i][0] * Y[0][k];
+      for (int k = 0; k < N; ++k) {
+        float acc = Lc[i][0] * Y[0][k];
 #pragma unroll
-      for (int j = 1; j <= i; ++j) acc = acc + Lc[i][j] * Y[j][k];
-      D[i][k] = acc / tab[T::kSqmSqw + i];
+        for (int j = 1; j <= i; ++j) acc = acc + Lc[i][j] * Y[j][k];
+        D[i][k] = acc / tab[T::kSqmSqw + i];
+      }
     }
   }
 
-  // Vfull = I - ssa So W; S = -(Vfull D) / (mu lam); gp, gm
   float Vf[N][N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -288,7 +335,7 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
                  - ssa * (contract<N>(odd, g, 1, lmax, i, j) * w[j]);
     }
   }
-  float Sg[N][N];   // S = gp + gm, normalised (the beam's basis)
+  float Sg[N][N];
   const float dtau = dtau_in[e];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
@@ -320,7 +367,6 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
     expd_out[k * lb + e] = expf(-lam[k] * dtau);
   }
 
-  // Ufull = I - ssa Se W (thermal and beam)
   float Uf[N][N];
   if (thermal || beam) {
 #pragma unroll
@@ -328,7 +374,7 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         Uf[i][j] = (i == j ? 1.0f : 0.0f)
-                   - ssa * (contract<N>(even, g, 0, lmax, i, j) * w[j]);
+                   - ssa * (contract<N>(tab + T::kEven, g, 0, lmax, i, j) * w[j]);
       }
     }
   }
@@ -372,7 +418,6 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
   }
 
   if (beam) {
-    // q+-[i] = kappa sum_l (2l+1) par_l g_l Lam_l(mu0) Lam_l(+-mu_i)
     const float kappa = static_cast<float>(1.0 / (4.0 * 3.141592653589793));
     float accp[N];
     float accm[N];
@@ -410,7 +455,7 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
       const float qp = (kappa * accp[i]) * amp;
       const float qm = (kappa * accm[i]) * amp;
       qs[i] = qp + qm;
-      rhs[i][0] = qp - qm;              // qd until the loop below
+      rhs[i][0] = qp - qm;
       qsmu[i] = qs[i] / mu[i];
     }
 #pragma unroll
@@ -467,7 +512,6 @@ int launch(int thermal, int beam, const float* ssa, const float* pmom,
            int64_t B, const float* tab, cudaStream_t stream) {
   const int64_t lb = L * B;
   if (lb == 0) return 0;
-  constexpr int kThreads = 128;
   const int64_t blocks = (lb + kThreads - 1) / kThreads;
   stage1_general_kernel<N><<<static_cast<unsigned>(blocks), kThreads, 0,
                              stream>>>(
@@ -495,9 +539,9 @@ PYHARP_API int pyharp_stage1_general(
   switch (n) {
 #define PYHARP_CASE(NN)                                                       \
     case NN:                                                                  \
-      return launch<NN>(thermal, beam, ssa, pmom, dtau, btop, slope, fbeam,  \
-                        mur, lam0, gp, gm, lam, expd, y0p, y0m, y1, zp, zm,   \
-                        nmom, sweeps, L, B, tab, s);
+      return launch<NN>(thermal, beam, ssa, pmom, dtau, btop, slope,   \
+                        fbeam, mur, lam0, gp, gm, lam, expd, y0p, y0m, y1,    \
+                        zp, zm, nmom, sweeps, L, B, tab, s);
     PYHARP_CASE(1)
     PYHARP_CASE(2)
     PYHARP_CASE(4)
@@ -506,3 +550,4 @@ PYHARP_API int pyharp_stage1_general(
     default: return PYHARP_UNSUPPORTED_N;
   }
 }
+
