@@ -14,13 +14,13 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
 0. device: needs CUDA (raises otherwise); prints the card, its power limit,
    the CUDA, nvcc and PyYAML versions;
 1. builds the kernels from the checkout's sources, prints the build time
-   and each kernel's registers and spills, K2 as its two bodies (one
-   thread per column for N <= 4, ``bvp_forward_team`` for N = 8);
+   and each kernel's registers and spills;
 2. K1 against its plain PyTorch version, float32 on the card, nstr 4/8/16
    and the bench shape, with ssa forced to 0 and 0.999999 in some entries:
    max|err| <= 3e-5 max|ref| per output;
 3. K2 and K3 against their plain versions, float32 on the card, nstr
-   4/8/16 at L = 100 and 37 on 1024 columns: |err| <= 3e-5 max|ref| +
+   4/8/16 at L = 100 on 1024 columns and at L = 37 on 1018, which leaves
+   every launch's last block of columns partial: |err| <= 3e-5 max|ref| +
    3e-4 |ref| per output;
 4. ``Disort.forward`` at the bench shape: each kernel launched once per
    call; fluxes against the plain path in float64 on every column
@@ -59,10 +59,10 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
     together amplify float32 rounding, 1e-3 of max|ref|) and against K2 +
     K3 (flux mode; its raw bottom (a, b) contracted against K3's
     bottom-level sums) or K2 + K5 ((a, b) mode) within 3e-6 of max|ref|
-    per output (``tests/test_pallas_kernels.py:121-142``; K2's team body
-    at N = 8 forms every entry as K6's per-thread layer step does, so the
-    (a, b) mode is bit-equal to K2 + K5 at every N): both modes at
-    nstr 4/8/16, L = 100 and 37, then on the BVP inputs of the bench
+    per output (``tests/test_pallas_kernels.py:121-142``; K2's team of
+    lanes forms every entry as K6's per-thread layer step does, so the
+    (a, b) mode is bit-equal to K2 + K5): both modes at
+    nstr 4/8/16 on phase 3's shapes, then on the BVP inputs of the bench
     (flux), aerosol ((a, b)) and sw_lbl (flux) paths; each timed against
     the two-kernel pair; on the near columns K2 + K5 against the plain K2
     then K5 is printed beside K6's reading;
@@ -148,6 +148,9 @@ def rel_err(got, ref) -> float:
 
 STAGE1_TOL = "max|err| <= 3e-5 max|ref| per output"
 BVP_TOL = "|err| <= 3e-5 max|ref| + 3e-4 |ref|"
+# (L, ncol) of phases 3 and 10, two waves each: 1024 columns, then 1018,
+# which no launch's block of columns divides, so the last block is partial.
+PHASE3_SHAPES = ((100, 512), (37, 509))
 
 
 def stage1_check(got, ref, what: str) -> float:
@@ -188,8 +191,7 @@ def ptxas_summary(log: str) -> dict[str, str]:
         m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?$",
                       line.strip())
         if m:
-            k = re.search(r"(stage1_isotropic|stage1_general|"
-                          r"bvp_forward_team|bvp_forward|"
+            k = re.search(r"(stage1_isotropic|stage1_general|bvp_forward|"
                           r"bvp_backward_flux|bvp_backward|bvp_fused)"
                           r"_kernelILi(\d+)E(Lb([01])E)?", m.group(1))
             cur = None
@@ -667,8 +669,8 @@ def main() -> None:
     # ---- phase 3: K2 + K3 against their plain versions ---------------------
     msgs = []
     for nstr in (4, 8, 16):
-        for L in (100, 37):
-            ds, prop, bc, temf, _ = bench_problem(2, 512, L, nstr,
+        for L, ncol in PHASE3_SHAPES:
+            ds, prop, bc, temf, _ = bench_problem(2, ncol, L, nstr,
                                                   torch.float32, dev, "cuda",
                                                   seed=nstr * L)
             ang = ds._ang0
@@ -687,8 +689,8 @@ def main() -> None:
                                           md["pb_p"], md["pb_m"], ang),
                 f"K3 nstr {nstr} L {L}")
             msgs.append(f"nstr {nstr} L {L}: K2 {e2:.2e} K3 {e3:.2e}")
-    say("3", "max|err|/max|ref| on 1024 columns: " + "; ".join(msgs)
-             + f" ({BVP_TOL})")
+    say("3", "max|err|/max|ref| on 1024 (L 100) and 1018 (L 37) columns: "
+             + "; ".join(msgs) + f" ({BVP_TOL})")
 
     # ---- phase 4: Disort.forward at the bench shape ------------------------
     nwave, ncol, nlyr, nstr = 8, 8192, 100, 8
@@ -875,8 +877,7 @@ def main() -> None:
                            (sol.gp, sol.gm, sol.expd, md["dblk"],
                             pr["albedo"], ang), {}, bvp_check, BVP_TOL,
                            kernel_flops("bvp_forward", N, L, B))
-        k2["ptxas"] = regs.get(("bvp_forward_team" if N == 8 else
-                                "bvp_forward") + f"<{N}>")
+        k2["ptxas"] = regs.get(f"bvp_forward<{N}>")
         if nstr == 16:
             recs[0]["ptxas"] = regs.get(f"stage1_general<{N}>")
             # built with --fmad=false: a multiply-add issues as two
@@ -942,8 +943,8 @@ def main() -> None:
     # ---- phase 10: K6 against its plain version and K2 + K3/K5 -------------
     msgs = []
     for nstr in (4, 8, 16):
-        for L in (100, 37):
-            ds, prop, bc, temf, _ = bench_problem(2, 512, L, nstr,
+        for L, ncol in PHASE3_SHAPES:
+            ds, prop, bc, temf, _ = bench_problem(2, ncol, L, nstr,
                                                   torch.float32, dev, "cuda",
                                                   seed=3 * nstr + L)
             pr = ds._prepare(prop, bc, temf)
@@ -960,7 +961,8 @@ def main() -> None:
             msgs.append(f"nstr {nstr} L {L}: (a, b) {errs[0]:.2e}/{errs[1]:.2e}"
                         f", flux {errs[2]:.2e}/{errs[3]:.2e}")
     say("10", "K6 max|err|/max|ref| vs plain / vs K2 + K5 or K2 + K3 on 1024 "
-              "columns: " + "; ".join(msgs) + f" ({BVP_TOL}; {K6_PAIR_TOL})")
+              "(L 100) and 1018 (L 37) columns: " + "; ".join(msgs)
+              + f" ({BVP_TOL}; {K6_PAIR_TOL})")
     k6_paths = (
         ("bench 8x8192x100 nstr 8", True,
          lambda: bench_problem(8, 8192, 100, 8, torch.float32, dev, "cuda")),
