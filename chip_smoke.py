@@ -14,7 +14,8 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
 0. device: needs CUDA (raises otherwise); prints the card, its power limit,
    the CUDA, nvcc and PyYAML versions;
 1. builds the kernels from the checkout's sources, prints the build time
-   and each kernel's registers and spills;
+   and each kernel's registers and spills, K2 as its two bodies (one
+   thread per column for N <= 4, ``bvp_forward_team`` for N = 8);
 2. K1 against its plain PyTorch version, float32 on the card, nstr 4/8/16
    and the bench shape, with ssa forced to 0 and 0.999999 in some entries:
    max|err| <= 3e-5 max|ref| per output;
@@ -59,9 +60,9 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
     together amplify float32 rounding, 1e-3 of max|ref|) and against K2 +
     K3 (flux mode; its raw bottom (a, b) contracted against K3's
     bottom-level sums) or K2 + K5 ((a, b) mode) within 3e-6 of max|ref|
-    per output (``tests/test_pallas_kernels.py:121-142``; K2's team of
-    lanes forms every entry as K6's per-thread layer step does, so the
-    (a, b) mode is bit-equal to K2 + K5): both modes at
+    per output (``tests/test_pallas_kernels.py:121-142``; K2's team body
+    at N = 8 forms every entry as K6's per-thread layer step does, so the
+    (a, b) mode is bit-equal to K2 + K5 at every N): both modes at
     nstr 4/8/16 on phase 3's shapes, then on the BVP inputs of the bench
     (flux), aerosol ((a, b)) and sw_lbl (flux) paths; each timed against
     the two-kernel pair; on the near columns K2 + K5 against the plain K2
@@ -191,7 +192,8 @@ def ptxas_summary(log: str) -> dict[str, str]:
         m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?$",
                       line.strip())
         if m:
-            k = re.search(r"(stage1_isotropic|stage1_general|bvp_forward|"
+            k = re.search(r"(stage1_isotropic|stage1_general|"
+                          r"bvp_forward_team|bvp_forward|"
                           r"bvp_backward_flux|bvp_backward|bvp_fused)"
                           r"_kernelILi(\d+)E(Lb([01])E)?", m.group(1))
             cur = None
@@ -877,7 +879,8 @@ def main() -> None:
                            (sol.gp, sol.gm, sol.expd, md["dblk"],
                             pr["albedo"], ang), {}, bvp_check, BVP_TOL,
                            kernel_flops("bvp_forward", N, L, B))
-        k2["ptxas"] = regs.get(f"bvp_forward<{N}>")
+        k2["ptxas"] = regs.get(("bvp_forward_team" if N == 8 else
+                                "bvp_forward") + f"<{N}>")
         if nstr == 16:
             recs[0]["ptxas"] = regs.get(f"stage1_general<{N}>")
             # built with --fmad=false: a multiply-add issues as two

@@ -16,33 +16,83 @@
 // flops (N = 4) or ~10,000 (N = 8) and a serial chain of pivot selects,
 // and the layer loop is serial, so the only parallelism is the B columns.
 //
-// A team of 2N lanes per column, 32 / 2N columns per warp.  One thread per
-// column would hold the 2N x (3N + 1) system in registers: at N = 8 that
-// is 255 registers, ~9 KB of spills and 8 warps per SM (PERF.md).  Lane j
-// owns block column j of the system and, for j <= N, one right-hand-side
-// column (the N unit columns, then the rhs): 4N floats in registers.
-// Owning columns rather than rows keeps the pivot search local (rows
-// would need a prefix scan for the pivot and a shuffle per live entry to
-// move the pivot row): lane c holds the pivot column, replays the plain
-// version's bubble (strict |a_r| > |a_c| swaps over the live suffix) on it
-// and broadcasts the swap bits in one shuffle; every lane applies the same
-// swaps to its columns.  The multipliers a_r,c * (1 / a_c,c) come from
-// lane c by shuffle, each lane eliminates its own columns, and back
-// substitution runs in the lanes that own the right-hand sides with the
-// upper triangle broadcast by shuffle.  Every entry is formed by the same
-// operations as in common.cuh's bvp_forward_layer, the per-thread layer
-// step K6 runs (back substitution times the pivot's reciprocal, as there),
-// so K2 + K5 is bit-equal to K6's (a, b) mode (chip_smoke.py phase 10).
-// A block of 256 threads stages each layer's gp, gm, E and dblk for its
-// columns in shared memory with cp.async, coalesced along B, while the
-// previous layer is solved (two stages), and P_l, g_l leave through a
-// shared buffer in coalesced stores.  Q lives in shared memory per column
-// (the lanes that form it are not those that read it), rg with the rhs
-// lane.  Registers and spills: chip_smoke.py phase 1 prints them.
+// Two bodies, chosen by N in pyharp_bvp_forward:
+//
+// N <= 4: one thread per column, common.cuh's bvp_forward_layer (shared
+// with K6), the 8 x 13 system (N = 4) and the carry in registers, no
+// spills.  It reaches 64-78% of its bound; the team body below, run at
+// N = 2 and 4, took 2.9-3.5x as long on the same paths (PERF.md).
+//
+// N = 8: a team of 2N = 16 lanes per column, two columns per warp (one
+// thread would hold the 16 x 25 system in 255 registers, spill ~9 KB and
+// run 8 warps per SM; PERF.md).  Lane j owns block column j of the system
+// and, for j <= N, one right-hand-side column (the N unit columns, then
+// the rhs): 32 floats in registers.  Owning columns rather than rows keeps
+// the pivot search local (rows would need a prefix scan for the pivot and
+// a shuffle per live entry to move the pivot row): lane c holds the pivot
+// column, replays the plain version's bubble (strict |a_r| > |a_c| swaps
+// over the live suffix) on it and broadcasts the swap bits in one
+// shuffle; every lane applies the same swaps to its columns.  The
+// multipliers a_r,c * (1 / a_c,c) come from lane c by shuffle, each lane
+// eliminates its own columns, and back substitution runs in the lanes
+// that own the right-hand sides with the upper triangle broadcast by
+// shuffle.  Every entry is formed by the same operations as in
+// bvp_forward_layer (back substitution times the pivot's reciprocal, as
+// there), so the kernel is bit-equal to the per-thread body, which K6's
+// forward sweep still runs at N = 8 (chip_smoke.py phase 10).  A block of
+// 16 columns stages each layer's gp, gm, E and dblk in shared memory with
+// cp.async, coalesced along B, while the previous layer is solved (two
+// stages), and P_l, g_l leave through a shared buffer in coalesced
+// stores.  Q lives in shared memory per column (the lanes that form it
+// are not those that read it), rg with the rhs lane.  Registers and
+// spills: chip_smoke.py phase 1 prints them.
 
 #include "common.cuh"
 
 namespace {
+
+template <int N>
+__global__ void __launch_bounds__(64)
+bvp_forward_kernel(const float* __restrict__ gp_in,
+                   const float* __restrict__ gm_in,
+                   const float* __restrict__ e_in,
+                   const float* __restrict__ d_in,
+                   const float* __restrict__ albedo,
+                   float* __restrict__ p_out, float* __restrict__ g_out,
+                   int L, int64_t B, FloatN<N> wmu) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int64_t LB = static_cast<int64_t>(L) * B;
+  const float alb = albedo[b];
+
+  float Q[N][N];
+  float rg[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    rg[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) Q[i][j] = 0.0f;
+  }
+
+  for (int l = 0; l < L; ++l) {
+    const int64_t o = static_cast<int64_t>(l) * B + b;
+    bvp_forward_layer<N>(gp_in, gm_in, e_in, d_in, LB, o, l == L - 1, alb,
+                         wmu, Q, rg, p_out + o, g_out + o, LB);
+  }
+}
+
+template <int N>
+int launch(const float* gp, const float* gm, const float* expd,
+           const float* dblk, const float* albedo, float* p_out, float* g_out,
+           int L, int64_t B, const FloatN<N>& w, cudaStream_t stream) {
+  constexpr int kThreads = 64;
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  bvp_forward_kernel<N><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      gp, gm, expd, dblk, albedo, p_out, g_out, L, B, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the team kernel (N = 8) ----------------------------------------------
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -79,13 +129,13 @@ struct TeamGeom {
 
 template <int N>
 __global__ void __launch_bounds__(TeamGeom<N>::kThreads, 3)
-bvp_forward_kernel(const float* __restrict__ gp_in,
-                   const float* __restrict__ gm_in,
-                   const float* __restrict__ e_in,
-                   const float* __restrict__ d_in,
-                   const float* __restrict__ albedo,
-                   float* __restrict__ p_out, float* __restrict__ g_out,
-                   int L, int64_t B, FloatN<N> wmu) {
+bvp_forward_team_kernel(const float* __restrict__ gp_in,
+                        const float* __restrict__ gm_in,
+                        const float* __restrict__ e_in,
+                        const float* __restrict__ d_in,
+                        const float* __restrict__ albedo,
+                        float* __restrict__ p_out, float* __restrict__ g_out,
+                        int L, int64_t B, FloatN<N> wmu) {
   using G = TeamGeom<N>;
   constexpr int M = G::M;
   constexpr int kStage = G::kIn * G::kPad;
@@ -258,13 +308,14 @@ bvp_forward_kernel(const float* __restrict__ gp_in,
 }
 
 template <int N>
-int launch(const float* gp, const float* gm, const float* expd,
-           const float* dblk, const float* albedo, float* p_out, float* g_out,
-           int L, int64_t B, const FloatN<N>& w, cudaStream_t stream) {
+int launch_team(const float* gp, const float* gm, const float* expd,
+                const float* dblk, const float* albedo, float* p_out,
+                float* g_out, int L, int64_t B, const FloatN<N>& w,
+                cudaStream_t stream) {
   using G = TeamGeom<N>;
   const int64_t blocks = (B + G::kCols - 1) / G::kCols;
-  bvp_forward_kernel<N><<<static_cast<unsigned>(blocks), G::kThreads,
-                          G::kSmemBytes, stream>>>(
+  bvp_forward_team_kernel<N><<<static_cast<unsigned>(blocks), G::kThreads,
+                               G::kSmemBytes, stream>>>(
       gp, gm, expd, dblk, albedo, p_out, g_out, L, B, w);
   return static_cast<int>(cudaGetLastError());
 }
@@ -292,7 +343,7 @@ PYHARP_API int pyharp_bvp_forward(int n, const float* gp, const float* gm,
     case 1: return launch<1>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<1>(wmu), s);
     case 2: return launch<2>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<2>(wmu), s);
     case 4: return launch<4>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<4>(wmu), s);
-    case 8: return launch<8>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<8>(wmu), s);
+    case 8: return launch_team<8>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<8>(wmu), s);
     default: return PYHARP_UNSUPPORTED_N;
   }
 }

@@ -33,21 +33,20 @@
 //
 // Design: one thread per element, the live set cut to fit 128 registers,
 // so an SM holds 16 warps (at 255 registers it would hold 8).  The time
-// is latency: 224 rotations per element at N = 8,
-// each a dependent chain of three divisions and two square roots, and long
-// dependent sums around them, so it is set by how many elements an SM
-// holds at once (tools/k4_designs.py builds this source at 4, 3 and 2
-// blocks of 128 threads per SM and times each; PERF.md).
+// is latency: 224 rotations per element at N = 8, each a dependent chain
+// of three divisions and two square roots, and long dependent sums around
+// them, so it is set by how many elements an SM holds at once (this source
+// at 3 and 2 blocks of 128 threads per SM ran 1.2x and 1.6x as long;
+// PERF.md).
 //  - The Jacobi matrix is kept packed (its lower triangle: 36 floats at
 //    N = 8, not 64), exactly, since every rotation writes both halves
 //    with the same value.
 //  - Neither the moments nor Lc stay live across the sweeps: the moments
 //    are loaded again and the Cholesky is recomputed, bit for bit.
 // A team of N lanes per element (each lane one row, the rotation's scalars
-// formed in every lane from shuffled entries, tools/k4_team.cu) is bit-
-// equal too but issue-bound: a warp issues the rotation's scalar chain for
-// four elements instead of 32, and it takes 3x as long at N = 8
-// (tools/k4_designs.py).
+// formed in every lane from shuffled entries) is bit-equal too but
+// issue-bound: a warp issues the rotation's scalar chain for four elements
+// instead of 32, and it took 3x as long at N = 8 (PERF.md).
 // Every output element keeps the plain version's operation order (and
 // --fmad=false), so the kernel is bit-equal to stage1_general_plain.
 // chip_smoke.py phase 1 prints the registers and spills of every build.
@@ -74,11 +73,9 @@ struct Tab {
 };
 
 constexpr int kThreads = 128;
-// Resident blocks per SM the register allocation must allow (4: at most
-// 128 registers a thread); tools/k4_designs.py builds other counts.
-#ifndef PYHARP_K4_MIN_BLOCKS
-#define PYHARP_K4_MIN_BLOCKS 4
-#endif
+// Resident blocks per SM the register allocation must allow: 4, so at most
+// 128 registers a thread.
+constexpr int kMinBlocks = 4;
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
@@ -220,7 +217,7 @@ __device__ __forceinline__ void cholesky_uhat(const float* tab,
 }
 
 template <int N>
-__global__ void __launch_bounds__(kThreads, PYHARP_K4_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 stage1_general_kernel(const float* __restrict__ ssa_in,
                       const float* __restrict__ pmom,
                       const float* __restrict__ dtau_in,
