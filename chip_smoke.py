@@ -15,7 +15,10 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
    the CUDA, nvcc and PyYAML versions;
 1. builds the kernels from the checkout's sources, prints the build time
    and each kernel's registers and spills, K2 as its two bodies (one
-   thread per column for N <= 4, ``bvp_forward_team`` for N = 8);
+   thread per column for N <= 4, ``bvp_forward_team`` for N = 8) and K6 as
+   its instantiations per mode (``bvp_fused_ab`` / ``_flux``, one thread
+   per column with its segment size S for N <= 4; ``bvp_fused_team`` for
+   N = 8);
 2. K1 against its plain PyTorch version, float32 on the card, nstr 4/8/16
    and the bench shape, with ssa forced to 0 and 0.999999 in some entries:
    max|err| <= 3e-5 max|ref| per output;
@@ -58,15 +61,18 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
     package) against its plain version (phase 3's bound; on the columns
     of the aerosol path near a beam resonance, where the two sweeps
     together amplify float32 rounding, 1e-3 of max|ref|) and against K2 +
-    K3 (flux mode; its raw bottom (a, b) contracted against K3's
-    bottom-level sums) or K2 + K5 ((a, b) mode) within 3e-6 of max|ref|
-    per output (``tests/test_pallas_kernels.py:121-142``; K2's team body
-    at N = 8 forms every entry as K6's per-thread layer step does, so the
-    (a, b) mode is bit-equal to K2 + K5 at every N): both modes at
-    nstr 4/8/16 on phase 3's shapes, then on the BVP inputs of the bench
-    (flux), aerosol ((a, b)) and sw_lbl (flux) paths; each timed against
-    the two-kernel pair; on the near columns K2 + K5 against the plain K2
-    then K5 is printed beside K6's reading;
+    K3 (flux mode; its raw bottom (a, b) against K2 + K5's bottom layer)
+    or K2 + K5 ((a, b) mode) within 3e-6 of max|ref| per output
+    (``tests/test_pallas_kernels.py:121-142``; K6's sweeps form every
+    entry as K2's and K5's do, so the (a, b) mode is bit-equal to K2 + K5
+    at every N): both modes at
+    nstr 4/8/16 on phase 3's shapes and on 1018 columns at L = 1 and
+    L = 25 (levels 1 K apart), one past a multiple of every segment size S
+    of K6's schedules (``tools/k6_segments.py``), so the last segment and
+    the last block of columns are partial; then on the BVP inputs of the bench (flux),
+    aerosol ((a, b)) and sw_lbl (flux) paths, each timed against the
+    two-kernel pair, with K6's share of its bound; on the near columns
+    K2 + K5 against the plain K2 then K5 is printed beside K6's reading;
 11. the YAML ``Radiation`` path of ``examples/amars_yaml_torch.py``: the
     amarsw-ck (40 g-points) and amarsw-lbl (19,995 bins at 0.1 cm^-1)
     configurations, 1 column x 40 layers, 8 streams, sequential and
@@ -152,6 +158,15 @@ BVP_TOL = "|err| <= 3e-5 max|ref| + 3e-4 |ref|"
 # (L, ncol) of phases 3 and 10, two waves each: 1024 columns, then 1018,
 # which no launch's block of columns divides, so the last block is partial.
 PHASE3_SHAPES = ((100, 512), (37, 509))
+# Phase 10 adds K6's edges on 1018 columns: one layer, and 25 = 24 + 1
+# layers, one past a multiple of every segment size tools/k6_segments.py
+# builds (1, 2, 3, 4, 8), so the last segment holds one layer.  Their
+# levels are 1 K apart, as the bench shape's 100 layers over 100 K: one
+# layer spanning 100 K with dtau down to 1e-3 is the thin-layer Planck
+# slope condition of ROADMAP section 3, where K2's own float32 g reads
+# 3.14e-5 of max|ref| from its plain version at nstr 16 (at L = 1 K6's
+# (a, b) is K2's g, as dx = 0).
+K6_EDGE_SHAPES = ((1, 509), (25, 509))
 
 
 def stage1_check(got, ref, what: str) -> float:
@@ -186,7 +201,8 @@ def bvp_check(got, ref, what: str) -> float:
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
-    """'kernel<N>' -> 'R regs, S B spill st, L B spill ld' from ptxas -v."""
+    """'kernel<N>' (K6 at N <= 4: 'kernel<N> S s', its segment size) ->
+    'R regs, S B spill st, L B spill ld' from ptxas -v."""
     out, cur, regs, spills = {}, None, {}, {}
     for line in log.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?$",
@@ -194,14 +210,17 @@ def ptxas_summary(log: str) -> dict[str, str]:
         if m:
             k = re.search(r"(stage1_isotropic|stage1_general|"
                           r"bvp_forward_team|bvp_forward|"
-                          r"bvp_backward_flux|bvp_backward|bvp_fused)"
-                          r"_kernelILi(\d+)E(Lb([01])E)?", m.group(1))
+                          r"bvp_backward_flux|bvp_backward|bvp_fused_team|"
+                          r"bvp_fused)_kernelILi(\d+)E(?:Li(\d+)E)?"
+                          r"(Lb([01])E)?", m.group(1))
             cur = None
             if k:
                 flag = {"stage1_isotropic": ("", "_beam"),
-                        "bvp_fused": ("_ab", "_flux")}.get(k.group(1))
-                name = k.group(1) + (flag[int(k.group(4))] if flag else "")
-                cur = f"{name}<{k.group(2)}>"
+                        "bvp_fused": ("_ab", "_flux"),
+                        "bvp_fused_team": ("_ab", "_flux")}.get(k.group(1))
+                name = k.group(1) + (flag[int(k.group(5))] if flag else "")
+                seg = f" S {k.group(3)}" if k.group(3) else ""
+                cur = f"{name}<{k.group(2)}>{seg}"
             continue
         if cur is None:
             continue
@@ -345,8 +364,10 @@ def stage1_inputs(L, B, seed, device):
     return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrs]
 
 
-def bench_problem(nwave, ncol, nlyr, nstr, dtype, device, kernel, seed=0):
-    """``bench.build_problem`` for the port: a Disort and its inputs."""
+def bench_problem(nwave, ncol, nlyr, nstr, dtype, device, kernel, seed=0,
+                  kelvin=100.0):
+    """``bench.build_problem`` for the port: a Disort and its inputs;
+    ``kelvin``, the temperature span from the top level (200 K) down."""
     import torch
 
     from pyharp_tpu_torch import Disort, DisortOptions
@@ -363,7 +384,7 @@ def bench_problem(nwave, ncol, nlyr, nstr, dtype, device, kernel, seed=0):
     bc = dict(umu0=torch.full((nwave, ncol), 0.5, **kw),
               albedo=torch.full((nwave, ncol), 0.1, **kw),
               btemp=torch.full((nwave, ncol), 300.0, **kw))
-    temf = np.linspace(200.0, 300.0, nlyr + 1, dtype=np.float32)
+    temf = np.linspace(200.0, 200.0 + kelvin, nlyr + 1, dtype=np.float32)
     temf = torch.tensor(np.broadcast_to(temf, (ncol, nlyr + 1)).copy(), **kw)
     weights = torch.full((nwave,), 1.0 / nwave, **kw)
     return disort, torch.tensor(prop, **kw), bc, temf, weights
@@ -498,21 +519,6 @@ def bvp_inputs(pr, md):
             md["ptop_p"], md["ptop_m"])
 
 
-def bottom_level_sums(ins, ab_last, md, ang):
-    """K6's raw bottom (a, b) contracted to K3's bottom-level sums."""
-    import torch
-
-    from pyharp_tpu_torch.rt.disort.solver import _umv, _uwdot_static
-
-    gp, gm, E = (x[:, :, -1] if x.ndim == 4 else x[:, -1] for x in ins[:3])
-    N = gp.shape[0]
-    a, b = ab_last[:N], ab_last[N:]
-    wmu = ang.w * ang.mu
-    up = _umv(gp * E[None], a) + _umv(gm, b) + md["pb_p"]
-    dn = _umv(gm * E[None], a) + _umv(gp, b) + md["pb_m"]
-    return torch.stack([_uwdot_static(wmu, up), _uwdot_static(wmu, dn)])
-
-
 def bvp_pair(ins, md, ang, flux_only: bool, plain: bool = False):
     """K2 then K3 (flux mode) or K5 ((a, b) mode) on K6's inputs; with
     ``plain``, their plain versions chained the same way."""
@@ -528,10 +534,26 @@ def bvp_pair(ins, md, ang, flux_only: bool, plain: bool = False):
     return bwd(gp, gm, E, P, g, ang)
 
 
+def k6_pair_reference(ins, md, ang, flux_only: bool):
+    """What K6 must give from the two-kernel pair: K2 + K5's (a, b); in
+    flux mode K3's layer-top sums and K2 + K5's bottom-layer (a, b).  The
+    bottom layer's x = g + P dx has dx = 0 in every sweep, so K6's raw
+    ab_last is exact there; contracted to K3's bottom-level sums it would
+    meet K3's in-kernel sums only to float32 rounding of a cancelling sum
+    (2.27e-5 of max|ref| in one layer spanning 100 K, dtau down to 1e-3)."""
+    import torch
+
+    a, b = bvp_pair(ins, md, ang, False)
+    if not flux_only:
+        return a, b
+    return (bvp_pair(ins, md, ang, True)[0],
+            torch.cat([a[:, -1], b[:, -1]]))
+
+
 def k6_against_pair(ins, md, ang, flux_only: bool, what: str):
-    """K6 against K2 + K3 (flux mode) or K2 + K5 on the same inputs, within
-    ``K6_PAIR_TOL`` of max|ref| per output.  Returns (errors, K6 ms, pair
-    ms)."""
+    """K6 against ``k6_pair_reference`` on the same inputs, within
+    ``K6_PAIR_TOL`` of max|ref| per output; timed against K2 + K3 (flux
+    mode) or K2 + K5.  Returns (errors, K6 ms, pair ms)."""
     from pyharp_tpu_torch.rt.disort import kernels as K
 
     def k6():
@@ -540,9 +562,7 @@ def k6_against_pair(ins, md, ang, flux_only: bool, what: str):
     def pair():
         return bvp_pair(ins, md, ang, flux_only)
 
-    got, want = k6(), pair()
-    if flux_only:
-        got = (got[0], bottom_level_sums(ins, got[1], md, ang))
+    got, want = k6(), k6_pair_reference(ins, md, ang, flux_only)
     errs = [rel_err(g, w) for g, w in zip(got, want)]
     assert max(errs) <= K6_PAIR_TOL, f"{what}: K6 vs K2 + K3/K5 {errs}"
     return errs, cuda_ms(k6, 20), cuda_ms(pair, 20)
@@ -586,9 +606,11 @@ def k6_record(path, pr, md, ang, flux_only: bool):
                      f"{chained:.2e})")
     errs, ms6, ms2 = k6_against_pair(ins, md, ang, flux_only, path)
     rec.update(mode="flux" if flux_only else "(a, b)",
-               pair_ms=ms2, pair=pair, pair_max_rel_err=max(errs))
+               pair_ms=ms2, pair=pair, pair_max_rel_err=max(errs),
+               share_of_bound=rec["bound_ms"] / rec["ms"])
     return rec, (f"{path}, {rec['mode']} mode: K6 {ms6:.3f} ms vs {pair} "
-                 f"{ms2:.3f} ms, max|err|/max|ref| vs {pair} "
+                 f"{ms2:.3f} ms, K6 at {rec['share_of_bound']:.1%} of its "
+                 f"bound; max|err|/max|ref| vs {pair} "
                  f"{max(errs):.2e} (<= {K6_PAIR_TOL}), vs plain "
                  f"{rec['max_rel_err']:.2e}{near_note} ({rec['tolerance']}); "
                  f"plain {rec['plain_ms']:.3f} ms; bound "
@@ -946,10 +968,12 @@ def main() -> None:
     # ---- phase 10: K6 against its plain version and K2 + K3/K5 -------------
     msgs = []
     for nstr in (4, 8, 16):
-        for L, ncol in PHASE3_SHAPES:
+        for L, ncol in PHASE3_SHAPES + K6_EDGE_SHAPES:
+            kelvin = float(L) if (L, ncol) in K6_EDGE_SHAPES else 100.0
             ds, prop, bc, temf, _ = bench_problem(2, ncol, L, nstr,
                                                   torch.float32, dev, "cuda",
-                                                  seed=3 * nstr + L)
+                                                  seed=3 * nstr + L,
+                                                  kelvin=kelvin)
             pr = ds._prepare(prop, bc, temf)
             md = ds._solve_mode(pr)
             ang, ins = ds._ang0, bvp_inputs(pr, md)
@@ -964,7 +988,7 @@ def main() -> None:
             msgs.append(f"nstr {nstr} L {L}: (a, b) {errs[0]:.2e}/{errs[1]:.2e}"
                         f", flux {errs[2]:.2e}/{errs[3]:.2e}")
     say("10", "K6 max|err|/max|ref| vs plain / vs K2 + K5 or K2 + K3 on 1024 "
-              "(L 100) and 1018 (L 37) columns: " + "; ".join(msgs)
+              "(L 100) and 1018 (L 37, 1, 25) columns: " + "; ".join(msgs)
               + f" ({BVP_TOL}; {K6_PAIR_TOL})")
     k6_paths = (
         ("bench 8x8192x100 nstr 8", True,
@@ -979,8 +1003,9 @@ def main() -> None:
         ds, prop, bc, temf = make()[:4]
         pr = ds._prepare(prop, bc, temf)
         md = ds._solve_mode(pr)
-        _, line = k6_record(path, pr, md, ds._ang0, flux_only)
+        rec, line = k6_record(path, pr, md, ds._ang0, flux_only)
         say("10", line + f" [{card}]")
+        kernels_json.append(rec)
         del ds, prop, bc, temf, pr, md
         torch.cuda.empty_cache()
 

@@ -16,7 +16,17 @@ Tolerances:
   float64: 1e-12 of max|ref|, the same recurrence;
 * the bottom snapshot ``ab_last`` contracted to bottom-level sums against
   K3's plain ``fl_bot``, float64: 1e-12 of max|ref|.
+
+The CUDA kernel at N <= 4 runs a segmented schedule (``csrc/bvp_fused.cu``):
+the forward sweep keeps only the carry at every S-th layer boundary, and
+the backward sweep recomputes each segment's P and g from its checkpoint
+before back-substituting them.  ``segmented_fused`` models that schedule in
+PyTorch with the plain version's layer step; it must give
+``bvp_fused_plain``'s bits (``torch.equal``) for every S, the last segment
+partial included.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -144,3 +154,66 @@ def test_wrapper_on_cpu_runs_plain_and_launches_nothing():
     assert K.launch_counts()["bvp_fused"] == 0
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         K.bvp_fused(*ins[:-1], ins[-1].to("meta"), wmu=wmu, flux_only=True)
+
+
+def segmented_fused(gp, gm, expd, dblk, alb, tp, tm, *, wmu, flux_only, S):
+    """K6's segmented schedule with the plain layer step: sweep 1 keeps the
+    plain carry (R, P, g) entering every S-th layer up to the last
+    segment; sweep 2 walks the segments bottom-up, recomputes each one's
+    P_l, g_l from its checkpoint and back-substitutes them (K5's carry, or
+    K3's layer-top sums and the bottom (a, b))."""
+    N, _, L, B = gp.shape
+    wmu = np.asarray(wmu, np.float64)
+    step = lambda l, c: K._bvp_forward_step(  # noqa: E731
+        gp, gm, expd, dblk, alb, wmu, l, c)
+    nseg = -(-L // S)
+    carry, ckpt = K._bvp_forward_carry0(gp), {}
+    for l in range((nseg - 1) * S):
+        if l % S == 0:
+            ckpt[l // S] = carry
+        carry = step(l, carry)
+    dx = gp.new_zeros((N, B))
+    xs, fl = [None] * L, [None] * L
+    for seg in range(nseg - 1, -1, -1):
+        if seg < nseg - 1:
+            carry = ckpt[seg]
+        layers = range(seg * S, min(L, seg * S + S))
+        Pg = []
+        for l in layers:
+            carry = step(l, carry)
+            Pg.append(carry[1:])
+        for l, (P, g) in reversed(list(zip(layers, Pg))):
+            x = g + TS._umv(P, dx)
+            a, b = x[:N], x[N:]
+            gpl, gml, El = gp[:, :, l], gm[:, :, l], expd[:, l]
+            up = TS._umv(gpl, a) + TS._umv(gml * El[None], b)
+            dn = TS._umv(gml, a) + TS._umv(gpl * El[None], b)
+            fl[l] = torch.stack([TS._uwdot_static(wmu, up + tp[:, l]),
+                                 TS._uwdot_static(wmu, dn + tm[:, l])])
+            xs[l], dx = x, up
+    x = torch.stack(xs, dim=1)
+    if flux_only:
+        return torch.stack(fl, dim=1), x[:, -1]
+    return x[:N], x[N:]
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_fused(nstr: int, flux_only: bool):
+    """K6's float32 inputs at L = 11, B = 8 and ``bvp_fused_plain`` on them."""
+    args = _jax_problem(nstr, 11, 8, seed=5, dtype=jnp.float32)
+    ins, wmu = _port_inputs(args, torch.float32)
+    return ins, wmu, K.bvp_fused_plain(*ins, wmu=wmu, flux_only=flux_only)
+
+
+@pytest.mark.parametrize("nstr", [2, 4, 8])
+@pytest.mark.parametrize("S", [1, 3, 4, 11])
+@pytest.mark.parametrize("flux_only", [False, True])
+def test_segmented_schedule_is_the_plain_version_bit_for_bit(nstr, S,
+                                                             flux_only):
+    """L = 11: S = 3 and 4 leave the last segment partial, S = 11 is one
+    segment (no checkpoint), S = 1 a checkpoint at every layer."""
+    ins, wmu, want = _plain_fused(nstr, flux_only)
+    got = segmented_fused(*ins, wmu=wmu, flux_only=flux_only, S=S)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g, w)

@@ -16,6 +16,15 @@ must stay within the BVP bound of the plain version in float32 and
 float64.  The kernel itself contracts multiply-adds, so on the card it is
 held to the plain version within the same bound (``chip_smoke.py`` phases
 3, 7 and 10).
+
+K6 runs its backward sweep on the same team (``csrc/bvp_fused.cu``,
+``team_backward_sweep``): lane r forms x_r = g_r + sum_k P[r][k] dx_k with
+dx_k shuffled from lane k, and lanes i < N form the next dx_i from the
+shuffled x, in the order of ``bvp_layer_carry`` ((a, b) mode) or
+``bvp_layer_flux`` (flux mode; lane 0's sums gather the lanes' terms in
+order).  ``team_backward`` models that lane by lane; it must give the bits
+of ``thread_backward``, a per-thread model of the ``common.cuh`` steps in
+their order, and stay within the BVP bound of the plain backward sweeps.
 """
 
 from __future__ import annotations
@@ -236,6 +245,154 @@ def test_team_forward_is_within_the_bvp_bound(nstr):
     got = _model(ins, ang, reciprocal=True)
     for dtype in (torch.float32, torch.float64):
         want = K.bvp_forward_plain(*(x.to(dtype) for x in ins), ang)
+        for w, x in zip(want, got):
+            w = w.numpy()
+            assert np.isfinite(x).all()
+            np.testing.assert_allclose(x, w, rtol=3e-4,
+                                       atol=3e-5 * np.abs(w).max())
+
+
+def thread_backward(gp, gm, E, P, g, tp, tm, wmu, flux: bool):
+    """One thread per column, float32: ``bvp_layer_coeffs`` then
+    ``bvp_layer_carry`` ((a, b)) or ``bvp_layer_flux<N, false>`` (flux),
+    bottom-up, in their operation order.  Returns (a, b) ``(N, L, B)``
+    each, or (fl ``(2, L, B)``, ab_last ``(2N, B)``)."""
+    N, _, L, B = gp.shape
+    M = 2 * N
+    dx = [np.zeros(B, F32) for _ in range(N)]
+    xs = np.empty((M, L, B), F32)
+    fl = np.empty((2, L, B), F32)
+    for l in range(L - 1, -1, -1):
+        x = []
+        for i in range(M):
+            acc = P[i, 0, l] * dx[0]
+            for k in range(1, N):
+                acc = acc + P[i, k, l] * dx[k]
+            x.append(g[i, l] + acc)
+        xs[:, l] = x
+        e = E[:, l]
+        new = []
+        for i in range(N):
+            if flux:
+                up, dn = gp[i, 0, l] * x[0], gm[i, 0, l] * x[0]
+                for k in range(1, N):
+                    up = up + gp[i, k, l] * x[k]
+                    dn = dn + gm[i, k, l] * x[k]
+                for k in range(N):
+                    up = up + gm[i, k, l] * e[k] * x[N + k]
+                    dn = dn + gp[i, k, l] * e[k] * x[N + k]
+                upt = wmu[i] * (up + tp[i, l])
+                dnt = wmu[i] * (dn + tm[i, l])
+                up_sum = upt if i == 0 else up_sum + upt
+                dn_sum = dnt if i == 0 else dn_sum + dnt
+                new.append(up)
+            else:
+                up = gp[i, 0, l] * x[0]
+                dn = (gm[i, 0, l] * e[0]) * x[N]
+                for k in range(1, N):
+                    up = up + gp[i, k, l] * x[k]
+                    dn = dn + (gm[i, k, l] * e[k]) * x[N + k]
+                new.append(up + dn)
+        if flux:
+            fl[:, l] = up_sum, dn_sum
+        dx = new
+    return (fl, xs[:, -1]) if flux else (xs[:N], xs[N:])
+
+
+def team_backward(gp, gm, E, P, g, tp, tm, wmu, flux: bool):
+    """K6's team backward sweep lane by lane, float32: lane j of 2N holds
+    x_j, lane i < N holds dx_i; a shuffle is a read of another lane's
+    register.  Same contract as ``thread_backward``."""
+    N, _, L, B = gp.shape
+    M = 2 * N
+    dx = [np.zeros(B, F32) for _ in range(M)]     # per lane; j < N live
+    xs = np.empty((M, L, B), F32)
+    fl = np.empty((2, L, B), F32)
+    for l in range(L - 1, -1, -1):
+        e = E[:, l]
+        # lane j: x_j = g_j + P_j dx, dx_k shuffled from lane k
+        x = []
+        for j in range(M):
+            acc = P[j, 0, l] * dx[0]
+            for k in range(1, N):
+                acc = acc + P[j, k, l] * dx[k]
+            x.append(g[j, l] + acc)
+        xs[:, l] = x
+        # every lane shuffles all of x; lane j works on row i = j % N
+        upt, dnt, new = [], [], []
+        for j in range(M):
+            i, xj = j % N, list(x)
+            if flux:
+                up, dn = gp[i, 0, l] * xj[0], gm[i, 0, l] * xj[0]
+                for k in range(1, N):
+                    up = up + gp[i, k, l] * xj[k]
+                    dn = dn + gm[i, k, l] * xj[k]
+                for k in range(N):
+                    up = up + gm[i, k, l] * e[k] * xj[N + k]
+                    dn = dn + gp[i, k, l] * e[k] * xj[N + k]
+                upt.append(wmu[i] * (up + tp[i, l]))
+                dnt.append(wmu[i] * (dn + tm[i, l]))
+                new.append(up)
+            else:
+                up = gp[i, 0, l] * xj[0]
+                dn = (gm[i, 0, l] * e[0]) * xj[N]
+                for k in range(1, N):
+                    up = up + gp[i, k, l] * xj[k]
+                    dn = dn + (gm[i, k, l] * e[k]) * xj[N + k]
+                new.append(up + dn)
+        if flux:
+            # the sums over lanes 0..N-1 in order, shuffled into every lane
+            up_sum, dn_sum = upt[0], dnt[0]
+            for r in range(1, N):
+                up_sum = up_sum + upt[r]
+                dn_sum = dn_sum + dnt[r]
+            fl[:, l] = up_sum, dn_sum
+        dx = new
+    return (fl, xs[:, -1]) if flux else (xs[:N], xs[N:])
+
+
+def _backward_inputs(nstr: int, seed: int):
+    """gp, gm, E and P, g of the plain forward on ``_layer_inputs``, and
+    random particulars tp, tm: float32 tensors (L = 6, B = 13)."""
+    ins, ang = _layer_inputs(nstr, L=6, B=13, seed=seed)
+    P, g = K.bvp_forward_plain(*ins, ang)
+    rng = np.random.default_rng(seed + 1)
+    N = nstr // 2
+    tp, tm = (torch.tensor(rng.uniform(0.0, 1.0, (N, 6, 13)),
+                           dtype=torch.float32) for _ in range(2))
+    return (ins[0], ins[1], ins[2], P, g, tp, tm), ang
+
+
+@pytest.mark.parametrize("nstr", [2, 4, 8, 16])
+@pytest.mark.parametrize("flux", [False, True])
+def test_team_backward_is_the_thread_backward(nstr, flux):
+    """Lane by lane, the team's backward sweep gives the per-thread steps'
+    float32 bits in both modes."""
+    xs, ang = _backward_inputs(nstr, seed=200 + nstr)
+    wmu = (ang.w * ang.mu).astype(F32)
+    arrs = [x.numpy() for x in xs]
+    want = thread_backward(*arrs, wmu, flux)
+    got = team_backward(*arrs, wmu, flux)
+    for w, x in zip(want, got):
+        np.testing.assert_array_equal(x, w)
+
+
+@pytest.mark.parametrize("nstr", [2, 4, 8, 16])
+@pytest.mark.parametrize("flux", [False, True])
+def test_team_backward_is_within_the_bvp_bound(nstr, flux):
+    """The team model against ``bvp_backward_plain`` ((a, b)) or
+    ``bvp_backward_flux_plain``'s layer-top sums (flux), float32 and
+    float64: |err| <= 3e-5 max|ref| + 3e-4 |ref| per output."""
+    xs, ang = _backward_inputs(nstr, seed=300 + nstr)
+    wmu = (ang.w * ang.mu).astype(F32)
+    got = team_backward(*(x.numpy() for x in xs), wmu, flux)
+    for dtype in (torch.float32, torch.float64):
+        t = [x.to(dtype) for x in xs]
+        if flux:
+            zero = torch.zeros(t[0].shape[0], t[0].shape[-1], dtype=dtype)
+            want = K.bvp_backward_flux_plain(*t, zero, zero, ang)[:1]
+        else:
+            want = K.bvp_backward_plain(*t[:5], ang)
         for w, x in zip(want, got):
             w = w.numpy()
             assert np.isfinite(x).all()
