@@ -18,6 +18,8 @@ arrives as text.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 from ..opacity.base import AttenuatorOptions
 from ..rt.disort.disort import DisortOptions
 from ..tables.rfm import read_weights_rfm
@@ -196,8 +198,10 @@ def _pick_source(cands: list[dict], bname: str) -> dict:
             f"{[str(c.get('band')) for c in cands]}")
     if len(cands) == 1:
         return cands[0]
+    # the file's own name: a directory such as a temporary one may hold
+    # another band's name
     hits = [c for c in cands
-            if bname.lower() in str(c.get("data", "")).lower()]
+            if bname.lower() in Path(str(c.get("data", ""))).name.lower()]
     if len(hits) == 1:
         return hits[0]
     datas = [str(c.get("data", "")) for c in cands]

@@ -32,48 +32,44 @@
 // ~96 + 20/S floats from device memory: the inputs are read twice, the
 // third read of gp, gm and E hits the cache right after the segment's
 // recompute, and the checkpoints are small; the price is the forward
-// arithmetic twice.  kSegment gives S per N; S = 1 is the plain scratch
-// design (P then g of every layer to a scratch [L][2N^2 + 2N][B]).
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/k6_segments.py,
-// PERF.md): at N = 2 the forward is cheap
-// and S = 3 takes 0.72x the scratch design's time; at N = 4 (167
-// registers, 6 blocks of 64 per SM) the second forward sweep eats most of
-// the saving, S = 2 is 0.94x on the bench inputs and 1.02x on amarsw-lbl,
-// the least total over the two, and S >= 4 loses (fewer blocks per SM).
+// arithmetic twice.  kSegment gives S per N, chosen on an NVIDIA H100 80GB
+// HBM3 at 700 W among S = 1 (P/g of every layer through a scratch), 2, 3,
+// 4 and 8 (PERF.md section 6): at N = 2 the forward is cheap and S = 3
+// takes 0.72x the scratch design's time; at N = 4 (167 registers, 6 blocks
+// of 64 per SM) the second forward sweep eats most of the saving, S = 2 is
+// 0.94x on the bench inputs and 1.02x on amarsw-lbl, the least total over
+// the two, and S >= 4 loses (fewer blocks per SM).
 //
 // N = 8: K2's team (common.cuh's team_forward_sweep: 16 lanes per column,
 // 16 columns per block of 256 threads, cp.async staging in two stages),
 // P/g to a scratch laid out as K2's output, (2N,N,L,B) and (2N,L,B), in
 // coalesced stores; then the backward sweep on the same team: the layer's
-// gp, gm, E (and tp, tm) and P_l, g_l staged by cp.async, lane r forms
+// gp, gm, E (and tp, tm) and P_l, g_l staged by cp.async (each thread
+// copies one column's slots at a constant stride per tensor: mapping every
+// copy's slot to its tensor apart cost the sweep ~0.6 ms of instructions
+// on the aerosol inputs, PERF.md section 6), lane r forms
 // x_r = g_r + sum_k P[r][k] dx_k with dx from the lanes i < N by shuffle,
 // in bvp_layer_coeffs' order; lanes i < N form dx_i in the order of
 // bvp_layer_carry ((a, b) mode) or bvp_layer_flux (flux mode); the
 // outputs leave through shared memory in coalesced stores.  N = 8 keeps
-// the scratch: its forward sweep is bound by latency and issue rate, not
-// bytes (K2 runs at 15% of its byte bound), so recomputing it would cost
-// far more than the scratch's round trip.
+// the scratch: its forward sweep is bound by latency and instruction
+// rate, not bytes (K2 runs at 15% of its byte bound), so recomputing it
+// would cost far more than the scratch's round trip.
 //
 // Bound on the H100: memory.  Counting each input read once and each output
 // written once (the scratch is not an input or an output), it reads
-// (2N^2 + 5N) L floats and 1 per column and writes 2 L + 2N (flux mode) or
-// 2N L ((a, b) mode) per column, against ~K2's flops plus ~14 N^2 L.
-// Registers and spills of every instantiation: chip_smoke.py phase 1.
-// tools/k6_segments.py times the schedules for S in {1, 2, 3, 4, 8}, built
-// with -DPYHARP_K6_SEGMENT=S.
+// (2N^2 + 3N) L floats and 1 per column, and in the flux mode tp and tm,
+// 2N L more; it writes 2 L + 2N (flux mode) or 2N L ((a, b) mode) per
+// column, against ~K2's flops plus ~14 N^2 L.  Registers and spills of
+// every instantiation: chip_smoke.py phase 1.
 
 #include "common.cuh"
 
 namespace {
 
-// Layers per segment at N <= 4 (1: P/g of every layer to the scratch).
-#ifdef PYHARP_K6_SEGMENT
-template <int N>
-constexpr int kSegment = PYHARP_K6_SEGMENT;
-#else
+// Layers per segment at N <= 4.
 template <int N>
 constexpr int kSegment = N == 4 ? 2 : 3;
-#endif
 
 constexpr int kThreads = 64;  // threads per block at N <= 4
 
@@ -85,9 +81,10 @@ constexpr int kLayerFloats = 2 * N * N + 2 * N;
 template <int N>
 constexpr bool kSegmentShared = N > 2;
 
+// 20 KB at N = 4, so the launch needs no opt-in above 48 KB.
 template <int N>
 constexpr int segment_smem_bytes() {
-  return kSegment<N> > 1 && kSegmentShared<N>
+  return kSegmentShared<N>
              ? static_cast<int>(sizeof(float)) * kSegment<N> * kLayerFloats<N>
                    * kThreads
              : 0;
@@ -132,7 +129,7 @@ __device__ __forceinline__ void backward_layer(
 
 // ---- N <= 4: one thread per column --------------------------------------
 
-template <int N, int S, bool FLUX>
+template <int N, bool FLUX>
 __global__ void __launch_bounds__(kThreads)
 bvp_fused_kernel(const float* __restrict__ gp_in,
                  const float* __restrict__ gm_in,
@@ -144,6 +141,7 @@ bvp_fused_kernel(const float* __restrict__ gp_in,
                  float* __restrict__ out1, float* __restrict__ out2,
                  float* __restrict__ scratch, int L, int64_t B,
                  FloatN<N> wmu) {
+  constexpr int S = kSegment<N>;
   constexpr int P2 = 2 * N * N;             // P's floats; g follows
   constexpr int kLF = kLayerFloats<N>;
   constexpr int C = N * N + N;              // the carry: Q, then rg
@@ -174,61 +172,54 @@ bvp_fused_kernel(const float* __restrict__ gp_in,
                           (p), (p) + P2 * (stride), (stride), (l), L, B, b, \
                           wmu, dx)
 
-  if constexpr (S == 1) {
-    // P/g of every layer through the scratch [L][2N^2 + 2N][B]
-    float* p_scr = scratch + b;
-    for (int l = 0; l < L; ++l) K6_FORWARD(l, p_scr + l * kLF * B, B);
-    for (int l = L - 1; l >= 0; --l) K6_BACKWARD(l, p_scr + l * kLF * B, B);
-  } else {
-    // sweep 1: the carry entering every S-th layer to the checkpoints, up
-    // to the last segment, whose carry stays in registers
-    const int nseg = (L + S - 1) / S;
-    float sink[kLF];                // this sweep's P/g, never read
-    for (int l = 0; l < (nseg - 1) * S; ++l) {
-      if (l % S == 0) {
-        float* ck = scratch + static_cast<int64_t>(l / S) * C * B + b;
+  // sweep 1: the carry entering every S-th layer to the checkpoints, up to
+  // the last segment, whose carry stays in registers
+  const int nseg = (L + S - 1) / S;
+  float sink[kLF];                  // this sweep's P/g, never read
+  for (int l = 0; l < (nseg - 1) * S; ++l) {
+    if (l % S == 0) {
+      float* ck = scratch + static_cast<int64_t>(l / S) * C * B + b;
 #pragma unroll
-        for (int i = 0; i < N; ++i) {
+      for (int i = 0; i < N; ++i) {
 #pragma unroll
-          for (int j = 0; j < N; ++j) ck[(i * N + j) * B] = Q[i][j];
-          ck[(N * N + i) * B] = rg[i];
-        }
+        for (int j = 0; j < N; ++j) ck[(i * N + j) * B] = Q[i][j];
+        ck[(N * N + i) * B] = rg[i];
       }
-      K6_FORWARD(l, sink, 1);
     }
-    // sweep 2: each segment bottom-up, recomputed from its checkpoint
-    for (int seg = nseg - 1; seg >= 0; --seg) {
-      const int l0 = seg * S;
-      const int n = min(S, L - l0);
-      if (seg < nseg - 1) {
-        const float* ck = scratch + static_cast<int64_t>(seg) * C * B + b;
+    K6_FORWARD(l, sink, 1);
+  }
+  // sweep 2: each segment bottom-up, recomputed from its checkpoint
+  for (int seg = nseg - 1; seg >= 0; --seg) {
+    const int l0 = seg * S;
+    const int n = min(S, L - l0);
+    if (seg < nseg - 1) {
+      const float* ck = scratch + static_cast<int64_t>(seg) * C * B + b;
 #pragma unroll
-        for (int i = 0; i < N; ++i) {
+      for (int i = 0; i < N; ++i) {
 #pragma unroll
-          for (int j = 0; j < N; ++j) Q[i][j] = ck[(i * N + j) * B];
-          rg[i] = ck[(N * N + i) * B];
-        }
+        for (int j = 0; j < N; ++j) Q[i][j] = ck[(i * N + j) * B];
+        rg[i] = ck[(N * N + i) * B];
       }
-      if constexpr (kSegmentShared<N>) {
-        // [S][kLF][kThreads]: thread-major, so a warp's accesses are
-        // conflict-free
-        float* buf = seg_smem + threadIdx.x;
-        for (int t = 0; t < n; ++t) {
-          K6_FORWARD(l0 + t, buf + t * kLF * kThreads, kThreads);
-        }
-        for (int t = n - 1; t >= 0; --t) {
-          K6_BACKWARD(l0 + t, buf + t * kLF * kThreads, kThreads);
-        }
-      } else {
-        float buf[S][kLF];          // registers: every index is static
+    }
+    if constexpr (kSegmentShared<N>) {
+      // [S][kLF][kThreads]: thread-major, so a warp's accesses are
+      // conflict-free
+      float* buf = seg_smem + threadIdx.x;
+      for (int t = 0; t < n; ++t) {
+        K6_FORWARD(l0 + t, buf + t * kLF * kThreads, kThreads);
+      }
+      for (int t = n - 1; t >= 0; --t) {
+        K6_BACKWARD(l0 + t, buf + t * kLF * kThreads, kThreads);
+      }
+    } else {
+      float buf[S][kLF];            // registers: every index is static
 #pragma unroll
-        for (int t = 0; t < S; ++t) {
-          if (t < n) K6_FORWARD(l0 + t, buf[t], 1);
-        }
+      for (int t = 0; t < S; ++t) {
+        if (t < n) K6_FORWARD(l0 + t, buf[t], 1);
+      }
 #pragma unroll
-        for (int t = S - 1; t >= 0; --t) {
-          if (t < n) K6_BACKWARD(l0 + t, buf[t], 1);
-        }
+      for (int t = S - 1; t >= 0; --t) {
+        if (t < n) K6_BACKWARD(l0 + t, buf[t], 1);
       }
     }
   }
@@ -292,22 +283,31 @@ __device__ __forceinline__ void team_backward_sweep(
 #pragma unroll
   for (int r = 1; r < N; ++r) w = (i == r) ? wmu.v[r] : w;
 
-  auto prefetch = [&](int l, float* dst) {
-    for (int idx = tid; idx < T::kIn * G::kCols; idx += G::kThreads) {
-      const int s = idx / G::kCols;
-      const int c = idx - s * G::kCols;
-      const int64_t o = static_cast<int64_t>(l) * B
-                        + (b0 + c < B ? b0 + c : B - 1);
-      const float* src =
-          s < N * N ? gp_in + s * LB + o
-          : s < T::kE ? gm_in + (s - N * N) * LB + o
-          : s < T::kTp ? e_in + (s - T::kE) * LB + o
-          : s < T::kTm && FLUX ? tp_in + (s - T::kTp) * LB + o
-          : s < T::kP ? tm_in + (s - T::kTm) * LB + o
-          : s < T::kG ? p_scr + (s - T::kP) * LB + o
-          : g_scr + (s - T::kG) * LB + o;
-      cp_async4(dst + s * G::kPad + c, src);
+  // Staging: thread tid always copies column c = tid % kCols, slots
+  // tid / kCols + kRows k of each tensor, so its addresses are a base and a
+  // constant stride (the prefetch makes ~17 copies per thread and layer).
+  constexpr int kRows = G::kThreads / G::kCols;
+  const int c_st = tid % G::kCols;
+  const int r_st = tid / G::kCols;
+  const int64_t b_st = b0 + c_st < B ? b0 + c_st : B - 1;
+  auto stage_slots = [&](float* dst, int s0, const float* src, int n,
+                         int64_t o) {
+#pragma unroll
+    for (int r = r_st; r < n; r += kRows) {
+      cp_async4(dst + (s0 + r) * G::kPad + c_st, src + r * LB + o);
     }
+  };
+  auto prefetch = [&](int l, float* dst) {
+    const int64_t o = static_cast<int64_t>(l) * B + b_st;
+    stage_slots(dst, 0, gp_in, N * N, o);
+    stage_slots(dst, N * N, gm_in, N * N, o);
+    stage_slots(dst, T::kE, e_in, N, o);
+    if (FLUX) {
+      stage_slots(dst, T::kTp, tp_in, N, o);
+      stage_slots(dst, T::kTm, tm_in, N, o);
+    }
+    stage_slots(dst, T::kP, p_scr, 2 * N * N, o);
+    stage_slots(dst, T::kG, g_scr, 2 * N, o);
     cp_async_commit();
   };
 
@@ -429,15 +429,12 @@ int launch_mode(const float* gp, const float* gm, const float* expd,
         w);
   } else {
     constexpr int smem = segment_smem_bytes<N>();
-    auto kernel = bvp_fused_kernel<N, kSegment<N>, FLUX>;
+    static_assert(smem <= 48 * 1024, "dynamic shared memory over 48 KB");
+    auto kernel = bvp_fused_kernel<N, FLUX>;
     if (smem > 0) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err == cudaSuccess) {
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-            cudaSharedmemCarveoutMaxShared);
-      }
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
@@ -466,17 +463,15 @@ int launch(int flux, const float* gp, const float* gm, const float* expd,
 
 template <int N>
 long long scratch_floats(int L, long long B) {
-  if (N == 8 || kSegment<N> == 1) {
-    return static_cast<long long>(L) * kLayerFloats<N> * B;
-  }
+  if (N == 8) return static_cast<long long>(L) * kLayerFloats<N> * B;
   const long long nseg = (L + kSegment<N> - 1) / kSegment<N>;
   return nseg * (N * N + N) * B;
 }
 
 }  // namespace
 
-// The scratch pyharp_bvp_fused needs, in floats: P/g of every layer (N = 8,
-// or S = 1), else the carry checkpoints; -1 for an N with no kernel.
+// The scratch pyharp_bvp_fused needs, in floats: P/g of every layer (N = 8),
+// else the carry checkpoints; -1 for an N with no kernel.
 PYHARP_API long long pyharp_bvp_fused_scratch(int n, int L, long long B) {
   switch (n) {
     case 1: return scratch_floats<1>(L, B);

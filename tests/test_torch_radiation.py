@@ -430,3 +430,14 @@ def test_entry_points_need_cuda_unless_cpu(nodes, monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
         build(device="cpu")
+
+
+@pytest.mark.parametrize("band", ["B2", "B4"])
+def test_pick_source_reads_the_file_name_not_its_directory(band):
+    """A band is matched against the data file's own name: a temporary
+    directory whose random name holds another band's (``.../tmpxb4y/``)
+    must not make the pick ambiguous."""
+    from pyharp_tpu_torch.radiation.factory import _pick_source
+
+    cands = [{"data": f"/data/tmpxb4y/amarsw-ck-{b}.nc"} for b in ("B2", "B4")]
+    assert _pick_source(cands, band)["data"].endswith(f"-{band}.nc")
