@@ -3,28 +3,34 @@
 
     python3 chip_smoke.py
 
-The paths are m = 0 flux solves through ``Disort.forward`` and the
-hand-written CUDA kernels of ``pyharp_tpu_torch/rt/disort/kernels.py``:
-the isotropic thermal problem of ``bench.py`` (8 g-points x 8192 columns x
-100 layers, 8 streams) and amars_lw (kernels K1, K2, K3); the 16-stream
-aerosol problem with a beam of ``bench_extra.py`` (500 x 128 x 40, K4, K2,
-K5); its 4-stream line-by-line beam problem (500 x 512 x 40, K1's beam
-variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
+The paths run through the hand-written CUDA kernels of
+``pyharp_tpu_torch/rt/disort/kernels.py``.  The m = 0 flux solves of
+``Disort.forward``: the isotropic thermal problem of ``bench.py`` (8
+g-points x 8192 columns x 100 layers, 8 streams) and amars_lw (kernels K1,
+K2, K3); the 16-stream aerosol problem with a beam of ``bench_extra.py``
+(500 x 128 x 40, K4, K2, K5); its 4-stream line-by-line beam problem (500 x
+512 x 40, K1's beam variant, K2, K3); amars_sw (K1 beam, K2, K3); the YAML
+``Radiation`` layer.  The radiances of ``Disort.intensities``: every
+azimuthal mode of ``bench_extra.py``'s radiance problem (32 x 512 x 40,
+K4 once per mode, K2 and K5 twice: m = 0, then the modes m >= 1 folded into
+the batch axis), and ``Radiation.band_radiances``.  Phases, one line each
+or more:
 
 0. device: needs CUDA (raises otherwise); prints the card, its power limit,
    the CUDA, nvcc and PyYAML versions;
 1. builds the kernels from the checkout's sources, prints the build time
-   and each kernel's registers and spills, K2 as its two bodies (one
-   thread per column for N <= 4, ``bvp_forward_team`` for N = 8) and K6 as
-   its instantiations per mode (``bvp_fused_ab`` / ``_flux``, one thread
-   per column for N <= 4; ``bvp_fused_team`` for N = 8);
-2. K1 against its plain PyTorch version, float32 on the card, nstr 4/8/16
-   and the bench shape, with ssa forced to 0 and 0.999999 in some entries:
-   max|err| <= 3e-5 max|ref| per output;
+   and each kernel's registers and spills (K1-K5 at N = 1..8, every nstr
+   up to 16), K2 as its two bodies (one thread per column for N != 8,
+   ``bvp_forward_team`` for N = 8) and K6 as its instantiations per mode
+   (``bvp_fused_ab`` / ``_flux``, one thread per column for N <= 4;
+   ``bvp_fused_team`` for N = 8);
+2. K1 against its plain PyTorch version, float32 on the card, nstr
+   4/6/8/10/12/14/16 and the bench shape, with ssa forced to 0 and 0.999999
+   in some entries: max|err| <= 3e-5 max|ref| per output;
 3. K2 and K3 against their plain versions, float32 on the card, nstr
-   4/8/16 at L = 100 on 1024 columns and at L = 37 on 1018, which leaves
-   every launch's last block of columns partial: |err| <= 3e-5 max|ref| +
-   3e-4 |ref| per output;
+   4/8/16 at L = 100 on 1024 columns, and nstr 4/6/8/10/12/14/16 at L = 37
+   on 1018, which leaves every launch's last block of columns partial:
+   |err| <= 3e-5 max|ref| + 3e-4 |ref| per output;
 4. ``Disort.forward`` at the bench shape: each kernel launched once per
    call; fluxes against the plain path in float64 on every column
    (max|err| <= 1e-4 max|flux|); 10 timed steps of the kernel path and of
@@ -34,11 +40,15 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
 5. amars_lw through the port: band fluxes against the float64 golden file
    (max|err| <= 1e-4 max|flux|), TOA down-flux ~ 0, up-flux > 0;
 6. K1's beam variant, K4 and K5 against their plain versions, float32 on
-   the card, nstr 4/8/16: K1 beam and K4 (thermal on and off, beam on and
-   off, delta-M scaled Henyey-Greenstein moments with g = 0.2 and 0.8, ssa
-   with 0 and 0.999999 entries, the beam cosine set onto a resonance
-   1/lam_k in some entries) to phase 2's bound, K4 also printed bit-equal
-   or not, K5 at L = 100 and 37 on a beam-and-moments solve to phase 3's;
+   the card, nstr 4/6/8/10/12/14/16: K1 beam and K4 (thermal on and off,
+   beam on and off, delta-M scaled Henyey-Greenstein moments with g = 0.2
+   and 0.8, ssa with 0 and 0.999999 entries, the beam cosine set onto a
+   resonance 1/lam_k in some entries) to phase 2's bound, K4 also
+   bit-equal (asserted); K4 at the modes m = 1..nstr-1 (nstr 4/8/16; the
+   others at m = 1, 2, nstr - 1: the mode's tables, no thermal source, the
+   beam's Lam_l^m(mu0) and prefactor 2/(4 pi), HG g = 0.8) to phase 2's
+   bound and bit-equal (asserted); K5 at L = 100 (nstr 4/8/16) and 37 on a
+   beam-and-moments solve to phase 3's;
 7. ``aerosol_16str_beam`` (``bench_extra.py:109-119``) at full width: K4,
    K2 and K5 each launched once per call, K1 and K3 not; fluxes against
    the float64 plain path on every column: 1e-4 max|flux| where no layer
@@ -86,7 +96,39 @@ variant, K2, K3); and amars_sw (K1 beam, K2, K3).  Phases, one line each:
     fused within 1e-6 of sequential and checked against the float64 plain
     path on columns 0 and 15; then K1, K2 and K3 against their plain
     versions on the fused solve's own inputs (phase 2's and 3's bounds,
-    every column, timed), and K6 on them as in phase 10.
+    every column, timed), and K6 on them as in phase 10;
+12. ``radiances_8str_4mu_2phi_3tau`` (``bench_extra.py:134-168``) at full
+    width, 32 x 512 x 40, nstr 8, 4 user cosines x 2 azimuths x 3 user
+    depths, the TMS/IMS corrections, tau and ssa drawn from a seeded
+    ``torch.Generator``: ``Disort.intensities`` launches K4 nstr times, K2
+    and K5 twice each, K1, K3 and K6 never; ``flux`` and ``uu`` against the
+    float64 plain path on every column (``radiance_errors``: 1e-4 of
+    max|flux|, and of each column's own max|uu| at every (tau, phi, mu),
+    where no layer of any mode is within ``RESONANCE_MARGIN`` of a beam
+    resonance; the near columns against the float64 plain path run with
+    float32's resonance floor, flux to ``NEAR_RESONANCE_TOL`` of max|flux|
+    as phase 7 holds it, uu to ``NEAR_RESONANCE_TOL`` of each column's own
+    max|uu|, their count and distance from float64 printed); ``flux``
+    against ``forward``'s (2e-4 rtol,
+    ``tests_tpu/test_tpu_radiances.py:52-53``); uu > 0 looking up; the step
+    (10 after a warm-up) and radiances/s, and how it divides between m =
+    0's kernels, the modes' kernels, the sweeps and corrections, and the
+    rest; K4 over the modes m >= 1 (bit-equal, asserted) and K2 and K5 on
+    the folded modes against their plain versions, timed;
+    K6 in (a, b) mode on m = 0's and the folded modes' BVP inputs beside
+    K2 + K5 (K6 has no caller: the route is a later decision);
+13. the static route (``kernels.route``): ``Disort.forward`` and
+    ``.intensities`` on CUDA tensors under ``kernel="auto"``, at nstr 6 and
+    12 in float32 through the kernels (forward: K4, K2, and K3 or K5 as N
+    gives, once each; intensities: K4 nstr times, K2 and K5 twice), at
+    nstr 8 in float64 through the plain versions (no launch), each against
+    the float64 plain path as phase 12 holds it; at nstr 6 and 12 the
+    kernels of forward's solve against their plain versions on its
+    inputs, timed (N = 3 and 6, instantiations no other phase times);
+14. ``Radiation.band_radiances`` on ``tests/test_band.py:358-390``'s band
+    (S8 + H2SO4, three out-directions) at 64 bins x 16 columns x 40 layers,
+    nstr 8: one launch each of K1 beam, K2 and K5; within 1e-4 of max|ref|
+    of the float64 plain path.
 
 Any failure raises.  The last three lines are the ``nvidia-smi``
 card line, a JSON object of per-kernel results and
@@ -156,6 +198,10 @@ def rel_err(got, ref) -> float:
 
 
 STAGE1_TOL = "max|err| <= 3e-5 max|ref| per output"
+# The stream counts of the repo's configurations, and with them every other
+# nstr up to 16, each a kernel instantiation N = nstr/2 (kernels.SUPPORTED_N)
+NSTR_MAIN = (4, 8, 16)
+NSTR_ALL = (4, 6, 8, 10, 12, 14, 16)
 BVP_TOL = "|err| <= 3e-5 max|ref| + 3e-4 |ref|"
 # (L, ncol) of phases 3 and 10, two waves each: 1024 columns, then 1018,
 # which no launch's block of columns divides, so the last block is partial.
@@ -217,11 +263,14 @@ def ptxas_summary(log: str) -> dict[str, str]:
             k = re.search(r"(stage1_isotropic|stage1_general|"
                           r"bvp_forward_team|bvp_forward|"
                           r"bvp_backward_flux|bvp_backward|bvp_fused_team|"
-                          r"bvp_fused)_kernelILi(\d+)E(Lb([01])E)?",
+                          r"bvp_fused)_kernelILi(\d+)E(L[bi]([01])E)?",
                           m.group(1))
             cur = None
             if k:
+                # the second template argument: K1's beam flag, K6's mode,
+                # K4's parity of the azimuthal mode
                 flag = {"stage1_isotropic": ("", "_beam"),
+                        "stage1_general": ("", "_odd_m"),
                         "bvp_fused": ("_ab", "_flux"),
                         "bvp_fused_team": ("_ab", "_flux")}.get(k.group(1))
                 name = k.group(1) + (flag[int(k.group(4))] if flag else "")
@@ -298,6 +347,13 @@ def _tensors(xs):
     return [x for x in xs if isinstance(x, torch.Tensor)]
 
 
+def stored_bytes(t) -> int:
+    """Bytes a kernel stores for the output ``t``: none for a broadcast view
+    of one element (``kernels.zero_particular``, K4's thermal particular
+    without a thermal source), else every element."""
+    return min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
+
+
 def near_err(got, ref, near) -> float:
     """max|err| / max|ref| on the ``near`` columns (the last axis), the
     largest over the outputs; max|ref| is taken over all columns."""
@@ -332,7 +388,8 @@ def kernel_record(name, path, launches, fn, plain, args, kw, check, tol,
         rel = check(got, want, what)
     if reads is None:
         reads = _tensors(list(args) + list(kw.values()))
-    nbytes = sum(t.numel() * t.element_size() for t in reads + _tensors(got))
+    nbytes = (sum(t.numel() * t.element_size() for t in reads)
+              + sum(stored_bytes(t) for t in _tensors(got)))
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     ops_ms = flops / PEAK_F32 * 1e3
     src, tpu = KERNEL_TABLE[name]
@@ -490,7 +547,7 @@ def solve_and_check(ds, ds64, args, args64, want_launches, label):
     def errs():
         pr64 = ds64._prepare(*args64, None)
         md64 = ds64._solve_mode(pr64)
-        ref = ds64._fluxes_from_mode0(pr64, md64)
+        ref = ds64._fluxes_from_mode0(pr64, md64)[0]
         col = (flux.double() - ref).abs().amax(dim=(2, 3)) / ref.abs().max()
         return col, resonance_margin(md64).reshape(col.shape)
 
@@ -508,6 +565,153 @@ def solve_and_check(ds, ds64, args, args64, want_launches, label):
     del flux, col, col_f
     ms = cuda_ms(lambda: ds.forward(*args).mean(dim=0), 10)
     return launches, err_away, err_near_f, err_near, int(near.sum()), ms
+
+
+# ---- the radiance path -------------------------------------------------------
+
+# bench_extra.py:134-168, radiances_8str_4mu_2phi_3tau: (nwave, ncol, nlyr,
+# nstr), the user cosines, azimuths and depths
+RAD_SHAPE = (32, 512, 40, 8)
+RAD_MU = (-0.8, -0.4, 0.4, 0.8)
+RAD_PHI = (0.0, float(np.pi / 2))
+RAD_TAU = (0.5, 2.0, 5.0)
+RAD_FLAGS = "lamber,quiet,usrang,usrtau,intensity_correction"
+
+
+def radiance_problem(dtype, device, kernel, shape=RAD_SHAPE, seed=0):
+    """``bench_extra.py:134-168``'s radiance configuration for the port: a
+    Disort and its inputs (HG moments g_l = 0.7^l, beam mu0 = 0.7, F = pi,
+    albedo 0.2), tau and ssa drawn in float32 from a seeded
+    ``torch.Generator``, so every dtype sees the same values."""
+    import torch
+
+    from pyharp_tpu_torch import Disort, DisortOptions
+
+    nwave, ncol, nlyr, nstr = shape
+    disort = Disort(DisortOptions(
+        flags=RAD_FLAGS, nwave=nwave, ncol=ncol, nlyr=nlyr, nstr=nstr,
+        nmom=nstr, user_mu=RAD_MU, user_phi=RAD_PHI, user_tau=RAD_TAU,
+        kernel=kernel))
+    gen = torch.Generator().manual_seed(seed)
+    size = (nwave, ncol, nlyr)
+    prop = torch.zeros(size + (2 + nstr,), dtype=torch.float32)
+    prop[..., 0] = 0.01 + 0.49 * torch.rand(size, generator=gen)
+    prop[..., 1] = 0.1 + 0.8 * torch.rand(size, generator=gen)
+    prop[..., 2:] = torch.tensor(0.7 ** np.arange(1, nstr + 1))
+    kw = dict(dtype=dtype, device=device)
+    bc = dict(albedo=torch.full((nwave, ncol), 0.2, **kw),
+              fbeam=torch.full((nwave, ncol), float(np.pi), **kw),
+              umu0=torch.full((nwave, ncol), 0.7, **kw))
+    return disort, prop.to(**kw), bc
+
+
+def step_pieces(ds, prop, bc, reps: int) -> dict[str, float]:
+    """Mean wall ms of each piece of ``ds.intensities(prop, bc)`` over the
+    same ``reps`` steps after a warm-up, each piece ending in a
+    synchronize: ``prepare``, ``m0`` (the m = 0 solve), ``modes`` (the
+    modes m >= 1), ``radiances`` (sweeps, corrections, assembly); then,
+    not part of the step, ``radiances`` without the modes m >= 1."""
+    import time
+
+    import torch
+
+    tot = dict(prepare=0.0, m0=0.0, modes=0.0, radiances=0.0,
+               radiances_without_modes=0.0)
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        pr = ds._prepare(prop, bc, None)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        md = ds._solve_mode(pr, flux_only=False)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        modes = ds._modes_batched(pr)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ds._radiances(pr, md, modes)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ds._radiances(pr, md, None)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        if rep:
+            for k, a, b in zip(tot, t, t[1:]):
+                tot[k] += (b - a) * 1e3 / reps
+    return tot
+
+
+def modes_margin(modes) -> "torch.Tensor":
+    """Per mode and column ``(nm, B)``: the least relative distance of any
+    layer's lam_k^2 from 1/mur^2 in the modes m >= 1 of a radiance solve
+    (``Disort._modes_batched``'s output)."""
+    lam2 = modes["lam"] ** 2
+    inv = 1.0 / modes["mur"] ** 2
+    return ((lam2 - inv).abs() / (lam2 + inv)).amin(dim=(1, 2))
+
+
+def radiance_reference(ds64, args64):
+    """The float64 plain path's radiances on ``args64``, and each column's
+    least distance from a beam resonance over every mode ``(B,)``, and per
+    mode m >= 1 ``(nm, B)``."""
+    import torch
+
+    pr = ds64._prepare(*args64, None)
+    md = ds64._solve_mode(pr, flux_only=False)
+    modes = ds64._modes_batched(pr)
+    out = ds64._radiances(pr, md, modes)
+    per_mode = modes_margin(modes)
+    margin = torch.minimum(resonance_margin(md), per_mode.amin(dim=0))
+    return out, margin, per_mode
+
+
+def radiance_errors(out, ref, ref_f, near, keys=("flux", "uu")):
+    """``flux`` and ``uu`` against the float64 plain path ``ref``, column by
+    column (``near`` ``(nwave, ncol)``).  Away from a beam resonance: max|err|
+    <= 1e-4 of max|flux| (all columns), and of the column's own max|uu|.
+    Near one, against ``ref_f``, the float64 plain path run with float32's
+    resonance floor: flux as phase 7 holds it, max|err| <=
+    ``NEAR_RESONANCE_TOL`` of max|flux| over all columns; uu column by
+    column, max|err| <= ``NEAR_RESONANCE_TOL`` of the column's own max|uu|,
+    so a column of small radiances is held to its own scale.  Returns per
+    output (away, near vs ``ref_f``, near vs ``ref``, near per column vs
+    ``ref``), each over its own scale."""
+    res = {}
+    for key in keys:
+        got, want, want_f = out[key].double(), ref[key], ref_f[key]
+        assert bool(got.isfinite().all()), key
+        dims = tuple(range(2, got.dim()))
+        err = (got - want).abs().amax(dim=dims)
+        err_f = (got - want_f).abs().amax(dim=dims)
+        if key == "flux":
+            own, own_f = want.abs().max(), want_f.abs().max()
+        else:
+            own, own_f = want.abs().amax(dim=dims), want_f.abs().amax(dim=dims)
+        away = float((err / own)[~near].max()) if bool((~near).any()) else 0.0
+        if bool(near.any()):
+            near_f = float((err_f / own_f)[near].max())
+            near_64 = float(err[near].max() / want.abs().max())
+            near_col = float((err / own)[near].max())
+        else:
+            near_f = near_64 = near_col = 0.0
+        assert away <= 1e-4, f"{key} vs float64 plain: {away:.2e}"
+        assert near_f <= NEAR_RESONANCE_TOL, (
+            f"{key} near a resonance vs float64 plain with float32's floor: "
+            f"{near_f:.2e}")
+        res[key] = (away, near_f, near_64, near_col)
+    return res
+
+
+def errors_text(res, n_near, n) -> str:
+    def scale(k):
+        return "the column's max|uu|" if k == "uu" else f"max|{k}|"
+
+    return "; ".join(
+        f"{k}: {a:.2e} on the {n - n_near} columns away from a resonance "
+        f"(<= 1e-4{' of the column' if k == 'uu' else ''}), on the {n_near} "
+        f"near ones {f:.2e} vs float32's floor (<= {NEAR_RESONANCE_TOL} of "
+        f"{scale(k)}) and {d:.2e} vs float64 ({c:.2e} of the column's max)"
+        for k, (a, f, d, c) in res.items())
 
 
 # ---- K6: the single-pass BVP against its plain version and K2 + K3/K5 ------
@@ -588,11 +792,12 @@ def single_layer_check(got, want, ins, kw, what: str) -> str:
             f"version {err32:.2e})")
 
 
-def k6_record(path, pr, md, ang, flux_only: bool):
-    """K6 on a path's BVP inputs: against its plain version (phase 3's
-    bound; with a beam, ``NEAR_RESONANCE_TOL`` on the columns near a
-    resonance) and K2 + K3/K5, timed; the ``kernels`` entry (launches 0: K6
-    is not on ``Disort.forward``) and a line of text.
+def k6_record(path, pr, md, ang, flux_only: bool, ins=None, near=None):
+    """K6 on a path's BVP inputs (``bvp_inputs(pr, md)`` unless ``ins`` is
+    given, with ``near`` the columns near a resonance): against its plain
+    version (phase 3's bound; with a beam, ``NEAR_RESONANCE_TOL`` on the
+    columns near a resonance) and K2 + K3/K5, timed; the ``kernels`` entry
+    (launches 0: K6 has no caller on the paths) and a line of text.
 
     Near a resonance the BVP cancels a beam particular up to 1/floor times
     its usual size, so float32 rounding, which differs between the kernels
@@ -603,9 +808,10 @@ def k6_record(path, pr, md, ang, flux_only: bool):
     printed beside K6's."""
     from pyharp_tpu_torch.rt.disort import kernels as K
 
-    ins = bvp_inputs(pr, md)
+    if ins is None:
+        ins = bvp_inputs(pr, md)
+        near = resonance_margin(md) < RESONANCE_MARGIN if "mur" in md else None
     N, _, L, B = ins[0].shape
-    near = resonance_margin(md) < RESONANCE_MARGIN if "mur" in md else None
     # the (a, b) mode reads no tp, tm
     rec = kernel_record("bvp_fused", path, 0, K.bvp_fused, K.bvp_fused_plain,
                         ins, dict(wmu=ang.w * ang.mu, flux_only=flux_only),
@@ -667,6 +873,107 @@ def thermal_records(path, launches, pr, md, ang):
     ]
 
 
+def sums_check(ins, ang, info: dict, away):
+    """A check for K3 (``kernel_record``'s ``check``) where its layer-top
+    and bottom-level sums cancel in float32: the sums add the particular
+    solution, many times the result with a beam and forward-peaked
+    moments, to the homogeneous part that cancels it, so the rounding of
+    the float32 inputs alone moves them by more than ``BVP_TOL`` allows
+    (phase 13 prints the float32 plain version's distance from float64
+    beside the kernel's).  As phase 10 holds K6's layer-top sums at L = 1,
+    each output is held to ``SINGLE_LAYER_TOL`` of max|ref| of the float64
+    plain version on the same inputs, on the columns ``away`` from a beam
+    resonance (``kernel_record`` holds the others); the float32 plain
+    version's reading and the kernel's against it (``BVP_TOL``'s measure,
+    reported) go into ``info``."""
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    ref = [r[..., away] for r in
+           K.bvp_backward_flux_plain(*(x.double() for x in ins), ang)]
+
+    def check(got, want, what):
+        errs, errs32, excess = [], [], []
+        for g, w, r in zip(got, want, ref):
+            assert bool(g.isfinite().all()), what
+            errs.append(rel_err(g.double(), r))
+            errs32.append(rel_err(w.double(), r))
+            excess.append(float(((g - w).abs() - 3e-4 * w.abs()).max()
+                                / w.abs().max().clamp_min(1e-30)))
+        assert max(errs) <= SINGLE_LAYER_TOL, (
+            f"{what}: sums vs float64 plain {errs} (float32 plain {errs32})")
+        info.update(max_rel_err_vs_float64=max(errs),
+                    plain_max_rel_err_vs_float64=max(errs32),
+                    vs_plain_excess_over_rtol=max(excess))
+        return max(errs)
+    return check
+
+
+def beam_records(path, launches, pr, md, ang, near=None,
+                 sums_vs_float64=False):
+    """The kernels of a beam solve's ``_solve_mode`` (``forward``) against
+    their plain versions on that solve's own inputs, every column, each
+    timed: K4 (phase moments; no thermal source) or K1's beam variant, K2,
+    then K3 (N <= ``FUSED_FLUX_MAX_N``) or K5.  ``near``, as in
+    ``kernel_record``, for K2 and K5; with ``sums_vs_float64``, K3 is held
+    by ``sums_check``.  The entries of the ``kernels`` line, in that
+    order."""
+    import torch
+
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from pyharp_tpu_torch.rt.disort.disort import FUSED_FLUX_MAX_N
+
+    sol = md["sol"]
+    N, L, B = sol.gp.shape[0], pr["L"], pr["B"]
+    s1 = (pr["ssa_s"], pr["dtau"], pr["b_top_lay"], pr["slope"])
+    nmom = pr["pmom_s"].shape[1]
+    if nmom:
+        recs = [kernel_record(
+            "stage1_general", path, launches["stage1_general"],
+            K.stage1_general, K.stage1_general_plain,
+            (pr["ssa_s"], pr["pmom_s"], *s1[1:], ang),
+            dict(thermal=False, fbeam=pr["fbeam"], mur=md["mur"],
+                 lam0=md["lam0"]), stage1_check, STAGE1_TOL,
+            kernel_flops("stage1_general", N, L, B, nmom=nmom,
+                         sweeps=K.kernel_sweeps(N), thermal=False, beam=True),
+            reads=[pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["fbeam"],
+                   md["mur"], md["lam0"]])]
+    else:
+        recs = [kernel_record(
+            "stage1_isotropic_beam", path, launches["stage1_isotropic_beam"],
+            K.stage1_isotropic_beam, K.stage1_isotropic_beam_plain,
+            (*s1, pr["fbeam"], md["mur"], ang), {}, stage1_check, STAGE1_TOL,
+            kernel_flops("stage1_isotropic_beam", N, L, B))]
+    recs.append(kernel_record(
+        "bvp_forward", path, launches["bvp_forward"], K.bvp_forward,
+        K.bvp_forward_plain,
+        (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ang), {},
+        bvp_check, BVP_TOL, kernel_flops("bvp_forward", N, L, B), near=near))
+    bwd = (sol.gp, sol.gm, sol.expd, md["P"], md["g"])
+    if N <= FUSED_FLUX_MAX_N:
+        tops = (md["ptop_p"], md["ptop_m"], md["pb_p"], md["pb_m"])
+        info = {}
+        check, tol = bvp_check, BVP_TOL
+        if sums_vs_float64:
+            away = torch.ones(B, dtype=torch.bool, device=sol.gp.device)
+            if near is not None and bool(near.any()):
+                away = ~near
+            check = sums_check((*bwd, *tops), ang, info, away)
+            tol = (f"max|err| <= {SINGLE_LAYER_TOL} max|ref| of the float64 "
+                   "plain version (float32 cancellation in the sums)")
+        recs.append(kernel_record(
+            "bvp_backward_flux", path, launches["bvp_backward_flux"],
+            K.bvp_backward_flux, K.bvp_backward_flux_plain,
+            (*bwd, *tops, ang), {}, check, tol,
+            kernel_flops("bvp_backward_flux", N, L, B), near=near))
+        recs[-1].update(info)
+    else:
+        recs.append(kernel_record(
+            "bvp_backward", path, launches["bvp_backward"], K.bvp_backward,
+            K.bvp_backward_plain, (*bwd, ang), {}, bvp_check, BVP_TOL,
+            kernel_flops("bvp_backward", N, L, B), near=near))
+    return recs
+
+
 def main() -> None:
     import torch
 
@@ -701,8 +1008,7 @@ def main() -> None:
 
     # ---- phase 2: K1 against its plain version -----------------------------
     k1_err = {}
-    for nstr, L, B in ((4, 37, 4096), (8, 37, 4096), (16, 37, 4096),
-                       (8, 100, 65536)):
+    for nstr, L, B in tuple((n, 37, 4096) for n in NSTR_ALL) + ((8, 100, 65536),):
         ang = make_static_angles(nstr, nstr, 0)
         ins = stage1_inputs(L, B, seed=nstr + L, device=dev)
         k1_err[(nstr, L, B)] = stage1_check(
@@ -714,8 +1020,8 @@ def main() -> None:
 
     # ---- phase 3: K2 + K3 against their plain versions ---------------------
     msgs = []
-    for nstr in (4, 8, 16):
-        for L, ncol in PHASE3_SHAPES:
+    for nstr in NSTR_ALL:
+        for L, ncol in PHASE3_SHAPES[0 if nstr in NSTR_MAIN else 1:]:
             ds, prop, bc, temf, _ = bench_problem(2, ncol, L, nstr,
                                                   torch.float32, dev, "cuda",
                                                   seed=nstr * L)
@@ -735,7 +1041,8 @@ def main() -> None:
                                           md["pb_p"], md["pb_m"], ang),
                 f"K3 nstr {nstr} L {L}")
             msgs.append(f"nstr {nstr} L {L}: K2 {e2:.2e} K3 {e3:.2e}")
-    say("3", "max|err|/max|ref| on 1024 (L 100) and 1018 (L 37) columns: "
+    say("3", "max|err|/max|ref| on 1024 (L 100; nstr 4/8/16) and 1018 (L 37) "
+             "columns: "
              + "; ".join(msgs) + f" ({BVP_TOL})")
 
     # ---- phase 4: Disort.forward at the bench shape ------------------------
@@ -805,7 +1112,7 @@ def main() -> None:
 
     # ---- phase 6: K1 beam, K4, K5 against their plain versions --------------
     msgs = []
-    for nstr in (4, 8, 16):
+    for nstr in NSTR_ALL:
         N = nstr // 2
         L, B = 37, 4096
         ang = make_static_angles(nstr, nstr, 0)
@@ -850,8 +1157,28 @@ def main() -> None:
                     got, ref, f"K4 nstr {nstr} thermal {thermal} beam {beam}"))
                 k4_equal.append(all(bool(torch.equal(g, r))
                                     for g, r in zip(got, ref)))
+        assert all(k4_equal), f"K4 nstr {nstr} is not bit-equal: {k4_equal}"
+        # K4 at the modes m >= 1: the mode's tables, no thermal source, the
+        # beam's Lam_l^m(mu0) and prefactor 2/(4 pi), HG g = 0.8 moments
+        pm8 = torch.tensor(np.broadcast_to(
+            hg_moments(0.8, nstr)[None, :, None], (L, nstr, B)).copy(),
+            dtype=torch.float32, device=dev)
+        mu0_t = torch.tensor(mu0, dtype=torch.float32, device=dev)
+        zero = torch.zeros_like(ssa)
+        e4m, eq4m = [], []
+        for m in (range(1, nstr) if nstr in NSTR_MAIN else (1, 2, nstr - 1)):
+            angm = make_static_angles(nstr, nstr, m)
+            a4m = (ssa, pm8, dtau, zero, zero, angm)
+            kw = dict(thermal=False, fbeam=fbeam, lam0=lepoly(
+                mu0_t, m, angm.lam_tables.shape[0] - 1).contiguous(),
+                mur=resonant(K.stage1_general_plain(*a4m, thermal=False)[2]))
+            got = K.stage1_general(*a4m, **kw)
+            ref = K.stage1_general_plain(*a4m, **kw)
+            e4m.append(stage1_check(got, ref, f"K4 nstr {nstr} mode {m}"))
+            eq4m.append(all(bool(torch.equal(g, r)) for g, r in zip(got, ref)))
+        assert all(eq4m), f"K4 nstr {nstr} modes not bit-equal: {eq4m}"
         e5 = []
-        for L5 in (100, 37):
+        for L5 in (100, 37) if nstr in NSTR_MAIN else (37,):
             ds, prop, bc = extra_problem(2, 256, L5, nstr, 0.8, torch.float32,
                                          dev, "cuda", seed=nstr * L5)
             md = ds._solve_mode(ds._prepare(prop, bc, None))
@@ -863,7 +1190,10 @@ def main() -> None:
         msgs.append(f"nstr {nstr}: K1 beam {e1:.2e}, K4 (thermal x beam) "
                     + "/".join(f"{e:.2e}" for e in e4) + " bit-equal "
                     + "/".join("yes" if q else "no" for q in k4_equal)
-                    + ", K5 L 100/37 "
+                    + f", K4 modes {'1..' if nstr in NSTR_MAIN else '1, 2, '}"
+                    f"{nstr - 1} (beam, HG g 0.8) max {max(e4m):.2e} "
+                    f"bit-equal {sum(eq4m)}/{len(eq4m)}"
+                    + ", K5 L " + ("100/37 " if nstr in NSTR_MAIN else "37 ")
                     + "/".join(f"{e:.2e}" for e in e5))
     say("6", "max|err|/max|ref|: " + "; ".join(msgs)
              + f" (K1 beam, K4: {STAGE1_TOL}; K5: {BVP_TOL})")
@@ -897,34 +1227,10 @@ def main() -> None:
         pr = ds._prepare(prop, bc, None)
         md = ds._solve_mode(pr)
         sol, ang = md["sol"], ds._ang0
-        L, B = pr["L"], pr["B"]
         path = f"{label} {nwave}x{ncol}x{nlyr} nstr {nstr}"
-        s1 = (pr["ssa_s"], pr["dtau"], pr["b_top_lay"], pr["slope"])
-        if nstr == 16:
-            nmom = pr["pmom_s"].shape[1]
-            recs = [kernel_record(
-                "stage1_general", path, launches["stage1_general"],
-                K.stage1_general, K.stage1_general_plain,
-                (pr["ssa_s"], pr["pmom_s"], *s1[1:], ang),
-                dict(thermal=False, fbeam=pr["fbeam"], mur=md["mur"],
-                     lam0=md["lam0"]), stage1_check, STAGE1_TOL,
-                kernel_flops("stage1_general", N, L, B, nmom=nmom,
-                             sweeps=K.kernel_sweeps(N), thermal=False,
-                             beam=True))]
-        else:
-            recs = [kernel_record(
-                "stage1_isotropic_beam", path,
-                launches["stage1_isotropic_beam"], K.stage1_isotropic_beam,
-                K.stage1_isotropic_beam_plain,
-                (*s1, pr["fbeam"], md["mur"], ang), {}, stage1_check,
-                STAGE1_TOL, kernel_flops("stage1_isotropic_beam", N, L, B))]
-        k2 = kernel_record("bvp_forward", path, launches["bvp_forward"],
-                           K.bvp_forward, K.bvp_forward_plain,
-                           (sol.gp, sol.gm, sol.expd, md["dblk"],
-                            pr["albedo"], ang), {}, bvp_check, BVP_TOL,
-                           kernel_flops("bvp_forward", N, L, B))
-        k2["ptxas"] = regs.get(("bvp_forward_team" if N == 8 else
-                                "bvp_forward") + f"<{N}>")
+        recs = beam_records(path, launches, pr, md, ang)
+        recs[1]["ptxas"] = regs.get(("bvp_forward_team" if N == 8 else
+                                     "bvp_forward") + f"<{N}>")
         if nstr == 16:
             recs[0]["ptxas"] = regs.get(f"stage1_general<{N}>")
             # built with --fmad=false: a multiply-add issues as two
@@ -933,10 +1239,6 @@ def main() -> None:
         bwd = (sol.gp, sol.gm, sol.expd, md["P"], md["g"])
         tops = (md["ptop_p"], md["ptop_m"], md["pb_p"], md["pb_m"])
         if nstr == 16:
-            recs += [k2, kernel_record(
-                "bvp_backward", path, launches["bvp_backward"],
-                K.bvp_backward, K.bvp_backward_plain, (*bwd, ang), {},
-                bvp_check, BVP_TOL, kernel_flops("bvp_backward", N, L, B))]
             kernels_json += [r for r in recs if r["name"] != "bvp_forward"]
             # K3 against K5 + the flux epilogue on the same inputs, N = 8
             fused = K.bvp_backward_flux(*bwd, *tops, ang)
@@ -949,11 +1251,6 @@ def main() -> None:
                        f"K5 + flux epilogue {ms_k5e:.3f} ms; fluxes differ by "
                        f"{ab:.2e} of max (the gate stays N <= 4) [{card}]")
         else:
-            recs += [k2, kernel_record(
-                "bvp_backward_flux", path, launches["bvp_backward_flux"],
-                K.bvp_backward_flux, K.bvp_backward_flux_plain,
-                (*bwd, *tops, ang), {}, bvp_check, BVP_TOL,
-                kernel_flops("bvp_backward_flux", N, L, B))]
             kernels_json.insert(1, recs[0])
         say(phase, "per kernel, all columns: " + records_line(recs)
                    + "; ptxas: " + "; ".join(
@@ -1170,6 +1467,272 @@ def main() -> None:
         say("11", line + f" [{card}]")
         kernels_json.append(rec)
         del rad, inputs, conc, atm, args, pr, md, recs
+
+    # ---- phase 12: radiances_8str_4mu_2phi_3tau at full width --------------
+    nwave, ncol, nlyr, nstr = RAD_SHAPE
+    N, nm = nstr // 2, nstr - 1
+    ds, prop, bc = radiance_problem(torch.float32, dev, "cuda")
+    K.reset_launches()
+    out = ds.intensities(prop, bc)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    expect_launches(launches, stage1_general=nstr, bvp_forward=2,
+                    bvp_backward=2)
+    assert out["uu"].shape == (nwave, ncol, len(RAD_TAU), len(RAD_PHI),
+                               len(RAD_MU)), out["uu"].shape
+    ds64, prop64, bc64 = radiance_problem(torch.float64, dev, "torch")
+    ref, margin, per_mode = radiance_reference(ds64, (prop64, bc64))
+    with float32_resonance_floor():
+        ref_f = radiance_reference(ds64, (prop64, bc64))[0]
+    near = (margin < RESONANCE_MARGIN).reshape(nwave, ncol)
+    n_near = int(near.sum())
+    res12 = radiance_errors(out, ref, ref_f, near)
+    del ref, ref_f, ds64, prop64, bc64
+    fwd = ds.forward(prop, bc)
+    fvf = float(((out["flux"] - fwd).abs()
+                 - 2e-4 * fwd.abs()).max() / fwd.abs().max())
+    assert fvf <= 1e-5, f"intensities flux vs forward: {fvf:.2e}"
+    up = [i for i, mu in enumerate(RAD_MU) if mu > 0]
+    assert bool((out["uu"][..., up] > 0).all()), "uu <= 0 looking up"
+    nrad = nwave * ncol * len(RAD_MU) * len(RAD_PHI) * len(RAD_TAU)
+    path = (f"radiances_8str_4mu_2phi_3tau {nwave}x{ncol}x{nlyr} nstr {nstr}")
+    say("12", f"{path}, flags {RAD_FLAGS}, user mu {RAD_MU}, phi "
+              f"{tuple(round(p, 4) for p in RAD_PHI)}, tau {RAD_TAU}: "
+              f"launches {launches}; uu {tuple(out['uu'].shape)} finite; "
+              "max|err| per column vs the float64 plain path (flux over "
+              "max|flux|, uu over the column's max|uu|, every (tau, phi, "
+              "mu)): " + errors_text(res12, n_near, nwave * ncol)
+              + f"; flux vs forward's |err| - 2e-4 |ref| {fvf:.2e} of "
+              "max|flux| (<= 1e-5); uu > 0 looking up at every user tau "
+              f"(min {float(out['uu'][..., up].min()):.3e}) [{card}]")
+    del out, fwd
+
+    # the step and how it divides: m = 0's kernels, the modes' kernels, the
+    # sweeps and corrections (Disort._radiances), the rest (preparation,
+    # Legendre tables, stacking, the BVP right-hand sides)
+    ms_step = cuda_ms(lambda: ds.intensities(prop, bc)["uu"], 10)
+    pieces = step_pieces(ds, prop, bc, 10)
+    pr = ds._prepare(prop, bc, None)
+    md = ds._solve_mode(pr, flux_only=False)
+    modes = ds._modes_batched(pr)
+    ang0, sol = ds._ang0, md["sol"]
+    L, B = pr["L"], pr["B"]
+    zero = torch.zeros_like(pr["ssa_s"])
+    angs = [ds._angles(m) for m in modes["ms"]]
+    fgp, fgm, fexpd, dblk, alb = modes["fold"]
+
+    def m0_kernels():
+        K.stage1_general(pr["ssa_s"], pr["pmom_s"], pr["dtau"],
+                         pr["b_top_lay"], pr["slope"], ang0, thermal=False,
+                         fbeam=pr["fbeam"], mur=md["mur"], lam0=md["lam0"])
+        P0, g0 = K.bvp_forward(sol.gp, sol.gm, sol.expd, md["dblk"],
+                               pr["albedo"], ang0)
+        return K.bvp_backward(sol.gp, sol.gm, sol.expd, P0, g0, ang0)
+
+    def k4_modes(k4):
+        def run():
+            return tuple(t for a, l0 in zip(angs, modes["lam0"])
+                         for t in k4(pr["ssa_s"], pr["pmom_s"], pr["dtau"],
+                                     zero, zero, a, thermal=False,
+                                     fbeam=pr["fbeam"], mur=modes["mur"],
+                                     lam0=l0))
+        return run
+
+    def modes_kernels():
+        k4_modes(K.stage1_general)()
+        Pm, gm_ = K.bvp_forward(fgp, fgm, fexpd, dblk, alb, ang0)
+        return K.bvp_backward(fgp, fgm, fexpd, Pm, gm_, ang0)
+
+    ms_m0 = cuda_ms(m0_kernels, 10)
+    ms_mk = cuda_ms(modes_kernels, 10)
+    sw_m0 = pieces.pop("radiances_without_modes")
+    total = sum(pieces.values())
+    say("12", f"step {ms_step:.3f} ms (CUDA events) = "
+              f"{nrad / ms_step * 1e3:.0f} radiances/s ({nrad} radiances); "
+              f"the step piece by piece on the host clock, each piece ending "
+              f"in a synchronize, {total:.3f} ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in pieces.items())
+              + f" ms; so m = 0 kernels (K4, K2, K5; CUDA events) "
+              f"{ms_m0:.3f} ms, m >= 1 kernels ({nm} K4, K2, K5 folded) "
+              f"{ms_mk:.3f} ms, sweeps + corrections "
+              f"{pieces['radiances']:.3f} ms (without the modes m >= 1 "
+              f"{sw_m0:.3f} ms), the rest (preparation, glue) "
+              f"{total - ms_m0 - ms_mk - pieces['radiances']:.3f} ms "
+              f"[{card}]")
+
+    # each kernel of the modes against its plain version on these inputs
+    near_cols = margin < RESONANCE_MARGIN                  # (B,)
+    near_fold = (per_mode < RESONANCE_MARGIN).reshape(nm * B)
+    k4_equal = all(bool(torch.equal(g, r)) for g, r in zip(
+        k4_modes(K.stage1_general)(), k4_modes(K.stage1_general_plain)()))
+    assert k4_equal, "K4 on the modes m >= 1 is not bit-equal to its plain version"
+    nmom = pr["pmom_s"].shape[1]
+    # the modes' launches of the counted run: all of K4's but m = 0's
+    recs = [kernel_record(
+        "stage1_general", path + f", modes 1..{nm}",
+        launches["stage1_general"] - 1,
+        k4_modes(K.stage1_general), k4_modes(K.stage1_general_plain), (), {},
+        stage1_check, STAGE1_TOL,
+        nm * kernel_flops("stage1_general", N, L, B, nmom=nmom,
+                          sweeps=K.kernel_sweeps(N), thermal=False, beam=True),
+        near=near_cols,
+        reads=[pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["fbeam"],
+               modes["mur"]] * nm + [modes["lam0"]])]
+    recs[0].update(bit_equal=k4_equal,
+                   ptxas=f"even m: {regs.get(f'stage1_general<{N}>')}; odd m: "
+                         f"{regs.get(f'stage1_general_odd_m<{N}>')}")
+    recs.append(kernel_record(
+        "bvp_forward", path + f", modes 1..{nm} folded",
+        launches["bvp_forward"], K.bvp_forward, K.bvp_forward_plain,
+        (fgp, fgm, fexpd, dblk, alb, ang0), {}, bvp_check, BVP_TOL,
+        kernel_flops("bvp_forward", N, L, nm * B), near=near_fold))
+    Pm, gm_ = K.bvp_forward(fgp, fgm, fexpd, dblk, alb, ang0)
+    recs.append(kernel_record(
+        "bvp_backward", path + f", modes 1..{nm} folded",
+        launches["bvp_backward"], K.bvp_backward, K.bvp_backward_plain,
+        (fgp, fgm, fexpd, Pm, gm_, ang0), {}, bvp_check, BVP_TOL,
+        kernel_flops("bvp_backward", N, L, nm * B), near=near_fold))
+    del Pm, gm_
+    say("12", "per kernel of the modes m >= 1, all columns: "
+              + records_line(recs) + "; K4 bit-equal to its plain version "
+              f"at every mode (asserted); K4 ptxas {recs[0]['ptxas']} [{card}]")
+    kernels_json += recs
+    tp0 = torch.zeros((N, L, nm * B), dtype=torch.float32, device=dev)
+    for what, kw in (("m = 0", {}),
+                     (f"modes 1..{nm} folded",
+                      dict(ins=(fgp, fgm, fexpd, dblk, alb, tp0, tp0),
+                           near=near_fold))):
+        rec, line = k6_record(f"{path}, {what}", pr, md, ang0, False, **kw)
+        say("12", line + f" [{card}]")
+        kernels_json.append(rec)
+    del ds, prop, bc, pr, md, modes, sol, fgp, fgm, fexpd, dblk, alb, tp0
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: the static route under kernel="auto" ---------------------
+    msgs = []
+    for nstr, dtype in ((6, torch.float32), (12, torch.float32),
+                        (8, torch.float64)):
+        shape = (4, 256, 20, nstr)
+        ds, prop, bc = radiance_problem(dtype, dev, "auto", shape=shape,
+                                        seed=nstr)
+        ds64, prop64, bc64 = radiance_problem(torch.float64, dev, "torch",
+                                              shape=shape, seed=nstr)
+        route = ds._kernels(prop.device, prop.dtype).route
+        f32 = dtype == torch.float32
+        assert route == ("cuda" if f32 else "torch"), (nstr, dtype, route)
+        K.reset_launches()
+        flux = ds.forward(prop, bc)
+        torch.cuda.synchronize()
+        l_fwd = K.launch_counts()
+        K.reset_launches()
+        out = ds.intensities(prop, bc)
+        torch.cuda.synchronize()
+        l_int = K.launch_counts()
+        # forward: K4, K2, then K3 (N <= 4) or K5; intensities: K4 per
+        # mode, K2 and K5 twice
+        back = "bvp_backward_flux" if nstr // 2 <= 4 else "bvp_backward"
+        expect_launches(l_fwd, **({"stage1_general": 1, "bvp_forward": 1,
+                                   back: 1} if f32 else {}))
+        expect_launches(l_int, **(dict(stage1_general=nstr, bvp_forward=2,
+                                       bvp_backward=2) if f32 else {}))
+        # forward's columns near a beam resonance of m = 0, as phase 7; in
+        # float64 the floor is float64's, so every column is held to 1e-4
+        near0 = (resonance_margin(ds64._solve_mode(ds64._prepare(
+            prop64, bc64, None))) < RESONANCE_MARGIN).reshape(shape[:2]) & f32
+        fwd = {"flux": ds64.forward(prop64, bc64)}
+        with float32_resonance_floor():
+            fwd_f = {"flux": ds64.forward(prop64, bc64)}
+        res_f = radiance_errors({"flux": flux}, fwd, fwd_f, near0,
+                                keys=("flux",))
+        ref, margin, _ = radiance_reference(ds64, (prop64, bc64))
+        with float32_resonance_floor():
+            ref_f = radiance_reference(ds64, (prop64, bc64))[0]
+        near = (margin < RESONANCE_MARGIN).reshape(shape[:2]) & f32
+        res = radiance_errors(out, ref, ref_f, near)
+        n = shape[0] * shape[1]
+        msgs.append(f"nstr {nstr} {str(dtype)[6:]}: route {route!r}, "
+                    f"launches forward {l_fwd}, intensities {l_int}; forward "
+                    + errors_text(res_f, int(near0.sum()), n)
+                    + "; intensities " + errors_text(res, int(near.sum()), n))
+        if f32:
+            # the kernels at this N on forward's own inputs, timed
+            pr = ds._prepare(prop, bc, None)
+            recs = beam_records(
+                f"radiance problem {'x'.join(map(str, shape[:3]))} nstr "
+                f"{nstr}, forward", l_fwd, pr, ds._solve_mode(pr), ds._ang0,
+                near=near0.reshape(-1), sums_vs_float64=True)
+            kernels_json += recs
+            k3 = [r for r in recs if "plain_max_rel_err_vs_float64" in r]
+            msgs.append(f"nstr {nstr} per kernel, all columns: "
+                        + records_line(recs) + "".join(
+                            f" (K3's sums: the float32 plain version "
+                            f"{r['plain_max_rel_err_vs_float64']:.2e} of "
+                            f"max|ref| from float64; K3 against it "
+                            f"{r['vs_plain_excess_over_rtol']:.2e} of "
+                            f"max|ref| over 3e-4 rtol, reported)"
+                            for r in k3))
+            del pr, recs
+        del ds, prop, bc, ds64, prop64, bc64, ref, ref_f, out, flux
+    say("13", "Disort.forward and .intensities on CUDA tensors, kernel="
+              "'auto', 4x256x20 radiance problems: " + "; ".join(msgs)
+              + f" [{card}]")
+
+    # ---- phase 14: band radiances ---------------------------------------------
+    from pyharp_tpu_torch.opacity.base import AttenuatorOptions
+    from pyharp_tpu_torch.radiation import (Radiation, RadiationBandOptions,
+                                            RadiationOptions)
+    from pyharp_tpu_torch.rt.disort.disort import DisortOptions
+
+    nwave, ncol, nlyr = 64, 16, 40
+    op = AttenuatorOptions(species_names=("S8", "H2SO4"),
+                           species_weights=(256.0e-3, 98.0e-3))
+
+    def sw_radiation(dtype, kernel):
+        """``tests/test_band.py:358-390``'s aerosol band with out-directions
+        (S8 + H2SO4, 2000-50000 cm^-1), at 64 bins x 16 columns x 40 layers."""
+        bop = RadiationBandOptions(
+            name="sw", nlyr=nlyr, ncol=ncol,
+            wave_lower=(2000.0,) * nwave, wave_upper=(50000.0,) * nwave,
+            outdirs="(0., 0.) (60., 30.) (30., 90.)",
+            wavenumber=tuple(np.linspace(2000.0, 50000.0, nwave)),
+            attenuators=(
+                ("s8", op.replace(species_ids=(0,), type="s8_fuller",
+                                  opacity_files=("s8_k_fuller.txt",))),
+                ("h2so4", op.replace(species_ids=(1,), type="h2sO4_simple",
+                                     opacity_files=("h2so4.txt",)))),
+            disort=DisortOptions(flags="lamber,quiet,usrang,"
+                                 "intensity_correction", nstr=8, nmom=8,
+                                 kernel=kernel))
+        rad = Radiation(RadiationOptions(bands=("sw",), band_options=(bop,)),
+                        dtype=dtype, device=dev)
+        kw = dict(dtype=dtype, device=dev)
+        gen = torch.Generator().manual_seed(14)
+        conc = (1e-4 * (0.5 + torch.rand((ncol, nlyr, 2), generator=gen))
+                ).to(**kw)
+        bc = dict(fbeam=torch.full((nwave, ncol), float(np.pi), **kw),
+                  umu0=torch.full((nwave, ncol), 0.8, **kw),
+                  albedo=torch.full((nwave, ncol), 0.3, **kw))
+        return rad, (conc, torch.full((nlyr,), 2000.0, **kw), bc)
+
+    rad, args = sw_radiation(torch.float32, "cuda")
+    K.reset_launches()
+    got = rad.band_radiances(*args)["sw"]
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    expect_launches(launches, stage1_isotropic_beam=1, bvp_forward=1,
+                    bvp_backward=1)
+    rad64, args64 = sw_radiation(torch.float64, "torch")
+    want = rad64.band_radiances(*args64)["sw"]
+    e14 = rel_err(got.double(), want)
+    assert got.shape == (nwave, ncol, 3) and bool((got > 0).all()), got.shape
+    assert e14 <= 1e-4, e14
+    say("14", f"Radiation.band_radiances, the S8 + H2SO4 band with 3 "
+              f"out-directions, {nwave} bins x {ncol} columns x {nlyr} layers, "
+              f"nstr 8 (isotropic: K1 beam at m = 0, the modes m >= 1 carry no "
+              f"source): launches {launches}; (nwave, ncol, nray) "
+              f"{tuple(got.shape)}, all > 0; max|err|/max|ref| vs the float64 "
+              f"plain path {e14:.2e} (<= 1e-4)")
+    del rad, args, rad64, args64, got, want
 
     print(card)
     print(json.dumps({"kernels": kernels_json}))

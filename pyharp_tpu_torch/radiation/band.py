@@ -11,9 +11,10 @@
   blackboard and runs the solver (with ``layer2level(temp)`` level
   temperatures when ``atm`` has ``temp``).
 
-The property layout is ``(nwave, ncol, nlyr, nprop)`` throughout.  Not
-ported yet: the Beer-Lambert solver (ROADMAP.md section 1 item 10) and the
-radiances of ``band_radiance`` (item 9); both raise.
+``band_radiance`` solves the radiances on the band's direction grids and
+gathers the TOA value of each configured ray.  The property layout is
+``(nwave, ncol, nlyr, nprop)`` throughout.  Not ported yet: the Beer-Lambert
+solver (ROADMAP.md section 1 item 10), which raises.
 """
 
 from __future__ import annotations
@@ -36,10 +37,10 @@ from ..opacity.freedman import FreedmanMean, FreedmanSimple
 from ..opacity.radio import RadioCIA, RadioElectron, RadioVVWAbsorber
 from ..opacity.rfm import RFM
 from ..rt.disort.disort import Disort, DisortOptions
-from ..utils.directions import get_direction_grids, parse_radiation_directions
+from ..utils.directions import (GRID_TOL, get_direction_grids,
+                                parse_radiation_directions)
 from .shared import shared
 
-ITEM_9 = "ROADMAP.md section 1 item 9 (radiances and special modes)"
 ITEM_10 = "ROADMAP.md section 1 item 10 (Beer-Lambert)"
 
 
@@ -234,9 +235,31 @@ class RadiationBand:
 
     def band_radiance(self, conc: Tensor, dz: Tensor, bc: dict,
                       atm: dict | None = None) -> Tensor:
-        """TOA radiances at the band's out-directions: not ported yet."""
-        raise NotImplementedError(
-            f"band_radiance (Disort intensities) is not ported yet: {ITEM_9}")
+        """TOA radiances ``(nwave, ncol, nray)`` at the band's out-directions
+        (``band.py:237-275``; the legacy solver's CalBandRadiance): the
+        radiances on the deduplicated (mu, phi) grids, then each ray's value.
+        A ray farther than the grids' own tolerance (``GRID_TOL``) from
+        every grid point raises: the gather is exact or refused, never the
+        nearest point."""
+        if self.rayout.shape[0] == 0:
+            raise ValueError(f"band {self.options.name}: no outdirs configured")
+        atm = self.atm_with_spectral(atm)
+        prop = self.compute_optics(conc, dz, **atm)
+        temf = (layer2level(atm["temp"], self.options.l2l)
+                if "temp" in atm else None)
+        out = self.rtsolver.intensities(prop, bc, temf)
+        toa = out["uu"][:, :, 0]             # (nwave, ncol, nphi, numu), TOA
+        mus, phis = np.asarray(out["user_mu"]), np.asarray(out["user_phi"])
+        cols = []
+        for mu, phi in self.rayout:
+            im, ip = np.abs(mus - mu).argmin(), np.abs(phis - phi).argmin()
+            if abs(mus[im] - mu) > GRID_TOL or abs(phis[ip] - phi) > GRID_TOL:
+                raise ValueError(
+                    f"band {self.options.name}: ray (mu {mu:.6g}, phi "
+                    f"{phi:.6g}) is not on the solver's grids (user_mu "
+                    f"{tuple(mus)}, user_phi {tuple(phis)})")
+            cols.append(toa[:, :, ip, im])
+        return torch.stack(cols, dim=-1)
 
     def reduce_ck(self, flux: Tensor) -> Tensor:
         """Correlated-k quadrature: band flux = sum_g w_g flux_g."""

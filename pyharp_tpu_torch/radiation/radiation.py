@@ -10,7 +10,9 @@
   given or on the blackboard.  ``fuse_bands=True`` solves each group of
   compatible bands as one batched ``Disort.forward`` over the concatenated
   wave axis, with the per-bin Planck edges passed as ``bc['wvnmlo'/
-  'wvnmhi']``: one launch of each kernel instead of one per band.
+  'wvnmhi']``: one launch of each kernel instead of one per band;
+* ``band_radiances`` / ``write_radiances``: TOA radiances at each band's
+  out-directions, and their ASCII or binary tables.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from ..interp.layer2level import layer2level
 from ..rt.disort.disort import Disort
 from ..tables.ascii import read_stellar_flux
 from ..utils.spherical import spherical_flux_correction
-from .band import ITEM_9, RadiationBand, RadiationBandOptions
+from ..utils.output import write_radiance_ascii, write_radiance_bin
+from .band import RadiationBand, RadiationBandOptions
 from .shared import shared
 
 _KNOWN_FLAGS = {"time_dependent", "broad_band", "stellar_beam",
@@ -164,11 +167,9 @@ class Radiation:
 
     def _forward_fused(self, conc, dz, bc, atm) -> dict[str, Tensor]:
         """One batched Disort solve per group of compatible bands.  Returns
-        band name -> per-bin flux, as the sequential path gives it.
-
-        The JAX package also marks each bypassed band solver's flux
-        accessor stale; the port has no ``Disort.fluxes()`` accessor yet
-        (ROADMAP.md section 1 item 9), so there is nothing to invalidate.
+        band name -> per-bin flux, as the sequential path gives it.  The
+        band solvers of a fused group are bypassed: their ``fluxes()``
+        accessor raises until their next own solve (``radiation.py:303-306``).
         """
         atm = dict(atm or {})
         out: dict[str, Tensor] = {}
@@ -183,6 +184,7 @@ class Radiation:
             for name, nw in zip(names, nws):
                 out[name] = flux[ofs:ofs + nw]
                 ofs += nw
+                self.bands[name].rtsolver.mark_bypassed()
         return out
 
     def _fused_problems(self, conc, dz, bc, atm):
@@ -311,13 +313,34 @@ class Radiation:
 
     # -- radiances -----------------------------------------------------------
 
-    def band_radiances(self, conc, dz, bc, atm=None):
-        """TOA radiances of the bands with out-directions: not ported yet."""
-        raise NotImplementedError(
-            f"band_radiances (Disort intensities) is not ported yet: {ITEM_9}")
+    def band_radiances(self, conc: Tensor, dz: Tensor, bc: dict,
+                       atm: dict | None = None) -> dict[str, Tensor]:
+        """TOA radiances of each band with out-directions
+        (``radiation.py:370-389``): band name -> ``(nwave, ncol, nray)``
+        (:meth:`RadiationBand.band_radiance`).  ``bc`` is shared or nested
+        by band name."""
+        return {name: band.band_radiance(conc, dz, _band_bc(bc, name), atm)
+                for name, band in self.bands.items()
+                if band.rayout.shape[0]}
 
-    def write_radiances(self, prefix, conc, dz, bc, atm=None, column=0):
-        """The radiance tables of the ``write_bin_radiance`` flag: not
-        ported yet."""
-        raise NotImplementedError(
-            f"write_radiances (Disort intensities) is not ported yet: {ITEM_9}")
+    def write_radiances(self, prefix: str, conc: Tensor, dz: Tensor, bc: dict,
+                        atm: dict | None = None, column: int = 0) -> list[str]:
+        """Write each band's TOA radiance table of one column
+        (``radiation.py:392-423``, the ``write_bin_radiance`` flag): binary
+        ``<prefix><band>.out`` when the flag is set, ASCII
+        ``<prefix><band>.txt`` otherwise.  Returns the paths written."""
+        paths = []
+        for name, rad in self.band_radiances(conc, dz, bc, atm).items():
+            band = self.bands[name]
+            data = rad[:, column, :].double().cpu().numpy()   # (nwave, nray)
+            if self.options.write_bin_radiance:
+                path = f"{prefix}{name}.out"
+                write_radiance_bin(path, data, band.rayout)
+            else:
+                path = f"{prefix}{name}.txt"
+                wave = (np.asarray(band.options.wavenumber)
+                        if band.options.wavenumber else None)
+                write_radiance_ascii(path, data, band.rayout, wave=wave,
+                                     header=f"band {name} TOA radiance")
+            paths.append(path)
+        return paths

@@ -78,7 +78,11 @@ PYHARP_API int pyharp_bvp_backward(int n, const float* gp, const float* gm,
   switch (n) {
     case 1: return launch<1>(gp, gm, expd, p, g, a, b, L, B, s);
     case 2: return launch<2>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 3: return launch<3>(gp, gm, expd, p, g, a, b, L, B, s);
     case 4: return launch<4>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 5: return launch<5>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 6: return launch<6>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 7: return launch<7>(gp, gm, expd, p, g, a, b, L, B, s);
     case 8: return launch<8>(gp, gm, expd, p, g, a, b, L, B, s);
     default: return PYHARP_UNSUPPORTED_N;
   }

@@ -101,7 +101,11 @@ PYHARP_API int pyharp_bvp_backward_flux(int n, const float* gp,
   switch (n) {
     case 1: return launch<1>(gp, gm, expd, p, g, ptop_p, ptop_m, pbot_p, pbot_m, fl, fl_bot, L, B, wmu, s);
     case 2: return launch<2>(gp, gm, expd, p, g, ptop_p, ptop_m, pbot_p, pbot_m, fl, fl_bot, L, B, wmu, s);
+    case 3: return launch<3>(gp, gm, expd, p, g, ptop_p, ptop_m, pbot_p, pbot_m, fl, fl_bot, L, B, wmu, s);
     case 4: return launch<4>(gp, gm, expd, p, g, ptop_p, ptop_m, pbot_p, pbot_m, fl, fl_bot, L, B, wmu, s);
+    case 5: return launch<5>(gp, gm, expd, p, g, ptop_p, ptop_m, pbot_p, pbot_m, fl, fl_bot, L, B, wmu, s);
+    case 6: return launch<6>(gp, gm, expd, p, g, ptop_p, ptop_m, pbot_p, pbot_m, fl, fl_bot, L, B, wmu, s);
+    case 7: return launch<7>(gp, gm, expd, p, g, ptop_p, ptop_m, pbot_p, pbot_m, fl, fl_bot, L, B, wmu, s);
     case 8: return launch<8>(gp, gm, expd, p, g, ptop_p, ptop_m, pbot_p, pbot_m, fl, fl_bot, L, B, wmu, s);
     default: return PYHARP_UNSUPPORTED_N;
   }

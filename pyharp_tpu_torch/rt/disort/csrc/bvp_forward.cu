@@ -22,6 +22,9 @@
 // with K6), the 8 x 13 system (N = 4) and the carry in registers, no
 // spills.  It reaches 64-78% of its bound; the team body below, run at
 // N = 2 and 4, took 2.9-3.5x as long on the same paths (PERF.md).
+// N = 5, 6, 7 (nstr 10, 12, 14) run the same per-thread body: a team of 2N
+// lanes would straddle a warp, and one thread spills the 2N x (3N + 1)
+// system (chip_smoke.py phase 1 prints how much).
 //
 // N = 8: a team of 2N = 16 lanes per column, two columns per warp (one
 // thread would hold the 16 x 25 system in 255 registers, spill ~9 KB and
@@ -125,12 +128,15 @@ PYHARP_API int pyharp_bvp_forward(int n, const float* gp, const float* gm,
                                   float* g_out, int L, long long B,
                                   const float* wmu, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (B == 0 || L == 0) return n == 1 || n == 2 || n == 4 || n == 8
-                                   ? 0 : PYHARP_UNSUPPORTED_N;
+  if (B == 0 || L == 0) return n >= 1 && n <= 8 ? 0 : PYHARP_UNSUPPORTED_N;
   switch (n) {
     case 1: return launch<1>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<1>(wmu), s);
     case 2: return launch<2>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<2>(wmu), s);
+    case 3: return launch<3>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<3>(wmu), s);
     case 4: return launch<4>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<4>(wmu), s);
+    case 5: return launch<5>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<5>(wmu), s);
+    case 6: return launch<6>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<6>(wmu), s);
+    case 7: return launch<7>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<7>(wmu), s);
     case 8: return launch_team<8>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<8>(wmu), s);
     default: return PYHARP_UNSUPPORTED_N;
   }

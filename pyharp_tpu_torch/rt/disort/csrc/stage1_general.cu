@@ -1,8 +1,14 @@
-// K4: general stage 1 of the m = 0 solve (phase moments).
+// K4: general stage 1 of one azimuthal mode (phase moments).
 //
 // Replaces pyharp_tpu/rt/disort/pallas_kernels.py:427 (_stage1_kernel, the
 // general branch :449-615), reached through fused_homogeneous_thermal
-// (:618) when nmom > 0.
+// (:618) when nmom > 0.  The mode m lives in the tables (the phase tables
+// and Lam_l^m at the nodes, kernels.general_tables), in lam0 = Lam_l^m(mu0)
+// and in the argument `mode`, which sets the parity of l - m that splits
+// the phase tables (their nonzero rows start at l = m mod 2 and at the
+// other parity) and the beam source's prefactor kappa = (2 - delta_m0) /
+// 4 pi.  For m >= 1 Lam_l^m vanishes at l < m, so the zero table entries
+// drop those moments; the radiance path runs one launch per mode.
 //
 // For every (layer, column) element, independently, in the operation order
 // of its plain version (solver.homogeneous_solution with the kernel's sweep
@@ -18,7 +24,7 @@
 //  4. D = M^-1/2 W^-1/2 Lc Y, S = -(V D) / (mu lam), gp/gm = (S +- D)/2
 //     normalised per mode, expd = exp(-lam dtau);
 //  5. thermal: U h = (1 - ssa) 1, V y0d = 2 mu slope h by two pivoted LUs;
-//  6. beam: q+- from the phase tables at the nodes and Lam_l(mu0), the
+//  6. beam: q+- = kappa sum_l (2l+1) parity_l g_l Lam_l(+-mu_i) Lam_l(mu0), the
 //     source expanded in S = gp + gm by one more LU, divided by the
 //     resonance-clamped lam^2 - 1/mur^2 (floor 1e-4 (lam^2 + 1/mur^2)),
 //     zd = -mur M^-1 (U zs - qs).
@@ -81,7 +87,7 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
-// sum over l of one parity (l0 = 0 even, 1 odd), l <= lmax, of
+// sum over l = l0, l0 + 2, ... <= lmax (the rows of one parity of l - m) of
 // g_l * tab[l][i][j], g_0 = 1, accumulated in l order; 0 with no term.
 template <int N>
 __device__ __forceinline__ float contract(const float* __restrict__ tab,
@@ -185,7 +191,7 @@ __device__ __forceinline__ void load_moments(const float* pmom, int64_t layer,
 template <int N>
 __device__ __forceinline__ void cholesky_uhat(const float* tab,
                                               const float (&g)[2 * N],
-                                              float ssa, int lmax,
+                                              float ssa, int lmax, int p0,
                                               float (&Lc)[N][N]) {
   using T = Tab<N>;
   const float* even = tab + T::kEven;
@@ -195,7 +201,7 @@ __device__ __forceinline__ void cholesky_uhat(const float* tab,
   for (int j = 0; j < N; ++j) {
     float d;
     {
-      const float se = contract<N>(even, g, 0, lmax, j, j);
+      const float se = contract<N>(even, g, p0, lmax, j, j);
       d = (1.0f - ssa * ((sqw[j] * se) * sqw[j])) / (sqm[j] * sqm[j]);
     }
 #pragma unroll
@@ -205,7 +211,7 @@ __device__ __forceinline__ void cholesky_uhat(const float* tab,
     const float inv = 1.0f / d;
 #pragma unroll
     for (int i = j + 1; i < N; ++i) {
-      const float se = contract<N>(even, g, 0, lmax, i, j);
+      const float se = contract<N>(even, g, p0, lmax, i, j);
       float v = (0.0f - ssa * ((sqw[i] * se) * sqw[j])) / (sqm[i] * sqm[j]);
 #pragma unroll
       for (int k = 0; k < j; ++k) v = v - Lc[i][k] * Lc[j][k];
@@ -216,7 +222,10 @@ __device__ __forceinline__ void cholesky_uhat(const float* tab,
   }
 }
 
-template <int N>
+// P0 = m mod 2: the first row of the even parity of l - m in the phase
+// tables (the odd parity starts at 1 - P0), a template parameter so that
+// each mode's table offsets are constants.
+template <int N, int P0>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 stage1_general_kernel(const float* __restrict__ ssa_in,
                       const float* __restrict__ pmom,
@@ -231,8 +240,8 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
                       float* __restrict__ y0p_out, float* __restrict__ y0m_out,
                       float* __restrict__ y1_out, float* __restrict__ zp_out,
                       float* __restrict__ zm_out, int nmom, int sweeps,
-                      int thermal, int beam, int64_t L, int64_t B,
-                      const float* __restrict__ tab) {
+                      int mode, int thermal, int beam, int64_t L,
+                      int64_t B, const float* __restrict__ tab) {
   using T = Tab<N>;
   const int64_t lb = L * B;
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -240,6 +249,8 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
   const int64_t layer = e / B;
   const int64_t b = e - layer * B;
   const int lmax = nmom < 2 * N - 1 ? nmom : 2 * N - 1;
+  constexpr int p0 = P0;
+  constexpr int p1 = 1 - P0;
   const float* odd = tab + T::kOdd;
   const float* mu = tab + T::kMu;
   const float* w = tab + T::kW;
@@ -253,14 +264,14 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
     float g[2 * N];
     load_moments<N>(pmom, layer, b, B, nmom, lmax, g);
     float Lc[N][N];
-    cholesky_uhat<N>(tab, g, ssa, lmax, Lc);
+    cholesky_uhat<N>(tab, g, ssa, lmax, p0, Lc);
     float VL[N][N];
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       float vh[N];
 #pragma unroll
       for (int m = 0; m < N; ++m) {
-        const float so = contract<N>(odd, g, 1, lmax, k, m);
+        const float so = contract<N>(odd, g, p1, lmax, k, m);
         vh[m] = ((k == m ? 1.0f : 0.0f) - ssa * ((sqw[k] * so) * sqw[m]))
                 / (sqm[k] * sqm[m]);
       }
@@ -310,7 +321,7 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
   float D[N][N];
   {
     float Lc[N][N];
-    cholesky_uhat<N>(tab, g, ssa, lmax, Lc);
+    cholesky_uhat<N>(tab, g, ssa, lmax, p0, Lc);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
 #pragma unroll
@@ -329,7 +340,7 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       Vf[i][j] = (i == j ? 1.0f : 0.0f)
-                 - ssa * (contract<N>(odd, g, 1, lmax, i, j) * w[j]);
+                 - ssa * (contract<N>(odd, g, p1, lmax, i, j) * w[j]);
     }
   }
   float Sg[N][N];
@@ -371,7 +382,7 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         Uf[i][j] = (i == j ? 1.0f : 0.0f)
-                   - ssa * (contract<N>(tab + T::kEven, g, 0, lmax, i, j) * w[j]);
+                   - ssa * (contract<N>(tab + T::kEven, g, p0, lmax, i, j) * w[j]);
       }
     }
   }
@@ -405,17 +416,13 @@ stage1_general_kernel(const float* __restrict__ ssa_in,
       y0p_out[i * lb + e] = btop * h[i][0] + 0.5f * y0d[i][0];
       y0m_out[i * lb + e] = btop * h[i][0] - 0.5f * y0d[i][0];
     }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      y1_out[i * lb + e] = 0.0f;
-      y0p_out[i * lb + e] = 0.0f;
-      y0m_out[i * lb + e] = 0.0f;
-    }
   }
 
   if (beam) {
-    const float kappa = static_cast<float>(1.0 / (4.0 * 3.141592653589793));
+    // (2 - delta_m0) / 4 pi, rounded to float as the plain version's scale
+    const float kappa = mode > 0
+        ? static_cast<float>(2.0 / (4.0 * 3.141592653589793))
+        : static_cast<float>(1.0 / (4.0 * 3.141592653589793));
     float accp[N];
     float accm[N];
     bool first[N];
@@ -505,43 +512,51 @@ int launch(int thermal, int beam, const float* ssa, const float* pmom,
            const float* dtau, const float* btop, const float* slope,
            const float* fbeam, const float* mur, const float* lam0, float* gp,
            float* gm, float* lam, float* expd, float* y0p, float* y0m,
-           float* y1, float* zp, float* zm, int nmom, int sweeps, int64_t L,
-           int64_t B, const float* tab, cudaStream_t stream) {
+           float* y1, float* zp, float* zm, int nmom, int sweeps, int mode,
+           int64_t L, int64_t B, const float* tab, cudaStream_t stream) {
   const int64_t lb = L * B;
   if (lb == 0) return 0;
   const int64_t blocks = (lb + kThreads - 1) / kThreads;
-  stage1_general_kernel<N><<<static_cast<unsigned>(blocks), kThreads, 0,
-                             stream>>>(
+  auto kernel = (mode & 1) ? stage1_general_kernel<N, 1>
+                           : stage1_general_kernel<N, 0>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       ssa, pmom, dtau, btop, slope, fbeam, mur, lam0, gp, gm, lam, expd, y0p,
-      y0m, y1, zp, zm, nmom, sweeps, thermal, beam, L, B, tab);
+      y0m, y1, zp, zm, nmom, sweeps, mode, thermal, beam, L, B, tab);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Shapes: ssa, dtau, btop, slope, mur (L,B); pmom (L,nmom,B), delta-M
-// scaled; fbeam (B); lam0 (G,B), Lam_l(mu0), rows l < nstr read; gp, gm
+// scaled; fbeam (B); lam0 (G,B), Lam_l^m(mu0), rows l < nstr read; gp, gm
 // (N,N,L,B); lam, expd, y0p, y0m, y1, zp, zm (N,L,B).  tab: the device
-// buffer of kernels.general_tables.  With beam == 0, fbeam, mur, lam0, zp
-// and zm are not touched (may be null); with thermal == 0, y0p, y0m and y1
-// are written as zeros.
+// buffer of kernels.general_tables for the mode m = `mode`, which also sets
+// the parity split of the tables and the beam prefactor (1/(4 pi) at m = 0,
+// 2/(4 pi) above).  With beam == 0, fbeam,
+// mur, lam0, zp and zm are not touched (may be null); with thermal == 0,
+// btop, slope, y0p, y0m and y1 are not touched (may be null): the thermal
+// particular is zero and the wrapper returns it without a store.
 PYHARP_API int pyharp_stage1_general(
     int n, int thermal, int beam, const float* ssa, const float* pmom,
     const float* dtau, const float* btop, const float* slope,
     const float* fbeam, const float* mur, const float* lam0, float* gp,
     float* gm, float* lam, float* expd, float* y0p, float* y0m, float* y1,
-    float* zp, float* zm, int nmom, int sweeps, long long L, long long B,
-    const float* tab, void* stream) {
+    float* zp, float* zm, int nmom, int sweeps, int mode, long long L,
+    long long B, const float* tab, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (n) {
 #define PYHARP_CASE(NN)                                                       \
     case NN:                                                                  \
       return launch<NN>(thermal, beam, ssa, pmom, dtau, btop, slope,   \
                         fbeam, mur, lam0, gp, gm, lam, expd, y0p, y0m, y1,    \
-                        zp, zm, nmom, sweeps, L, B, tab, s);
+                        zp, zm, nmom, sweeps, mode, L, B, tab, s);
     PYHARP_CASE(1)
     PYHARP_CASE(2)
+    PYHARP_CASE(3)
     PYHARP_CASE(4)
+    PYHARP_CASE(5)
+    PYHARP_CASE(6)
+    PYHARP_CASE(7)
     PYHARP_CASE(8)
 #undef PYHARP_CASE
     default: return PYHARP_UNSUPPORTED_N;

@@ -307,7 +307,11 @@ PYHARP_API int pyharp_stage1_isotropic(int n, int beam, const float* ssa,
                         lam, expd, y0p, y0m, y1, zp, zm, lb, B, tables, s);
     PYHARP_CASE(1)
     PYHARP_CASE(2)
+    PYHARP_CASE(3)
     PYHARP_CASE(4)
+    PYHARP_CASE(5)
+    PYHARP_CASE(6)
+    PYHARP_CASE(7)
     PYHARP_CASE(8)
 #undef PYHARP_CASE
     default: return PYHARP_UNSUPPORTED_N;

@@ -1,7 +1,10 @@
-"""Discrete-ordinates core of the m = 0 flux solve (PyTorch port of
+"""Discrete-ordinates core of each azimuthal mode (PyTorch port of
 ``pyharp_tpu/rt/disort/solver.py``): the homogeneous eigenstructure of each
 layer, the thermal, beam and general-source particular solutions, and the
-layer-coupling boundary-value problem.
+layer-coupling boundary-value problem.  The mode m enters through the
+angle tables of :func:`make_static_angles`, so one function serves every
+mode where the JAX package keeps traced-table copies for m >= 1
+(``homogeneous_solution_t`` :315, ``beam_particular_t`` :452).
 
 Memory layout is batch-last, as in the JAX package: matrices
 ``(N, N, L, B)``, vectors ``(N, L, B)``, per-layer scalars ``(L, B)`` with
@@ -257,16 +260,22 @@ def beam_resonance_eps(dtype: torch.dtype) -> float:
     return 1e-4 if dtype == torch.float32 else 1e-9
 
 
+def beam_kappa(m: int) -> float:
+    """The beam source's mode prefactor (2 - delta_m0) / 4 pi."""
+    return (2.0 if m > 0 else 1.0) / (4.0 * math.pi)
+
+
 def beam_source_moments(ssa: Tensor, pmom: Tensor, lam0: Tensor,
                         ang: StaticAngles):
     """The beam source's q+- at the nodes before the ssa*fbeam amplitude:
-    q+-[i] = kappa sum_l (2l+1) g_l Lam_l(+-mu_i) Lam_l(-mu0), each
-    ``(N, L, B)``; ``lam0`` is Lam_l(mu0), ``(G, B)``."""
+    q+-[i] = kappa sum_l (2l+1) g_l Lam_l^m(+-mu_i) Lam_l^m(-mu0), each
+    ``(N, L, B)``, kappa = :func:`beam_kappa` of the mode ``ang.m``;
+    ``lam0`` is Lam_l^m(mu0), ``(G, B)``."""
     dtype = ssa.dtype
     g = _moment_coeffs(ssa, pmom, ang)
     G = ang.lam_tables.shape[0]
     parity = _const(ang.parity, ssa)
-    kappa = (2.0 if ang.m > 0 else 1.0) / (4.0 * math.pi)
+    kappa = beam_kappa(ang.m)
     ls = torch.arange(G, dtype=dtype, device=ssa.device)
     coef = g * ((2 * ls + 1) * parity)[None, :, None] * lam0[None]
     lam_tab, par = ang.lam_tables, ang.parity

@@ -35,7 +35,11 @@ def parse_radiation_directions(s: str) -> np.ndarray:
     return np.stack([parse_radiation_direction(t) for t in tokens])
 
 
-def get_direction_grids(dirs: np.ndarray, tol: float = 1.0e-3):
+# directions closer than this (in mu and in phi [rad]) are one grid point
+GRID_TOL = 1.0e-3
+
+
+def get_direction_grids(dirs: np.ndarray, tol: float = GRID_TOL):
     """Unique sorted ``(uphi, umu)`` grids from ``(nray, 2)`` [mu, phi] rows
     (column 0 is mu, as the parser packs it; the JAX package documents the
     reference's disagreement on this)."""

@@ -68,7 +68,7 @@ def main() -> None:
                                      first=cfg_first[cfg])
         pr = ds._prepare(prop, bc, None)
         md = ds._solve_mode(pr)
-        return ds._fluxes_from_mode0(pr, md).double().numpy(), md, ds, prop, bc
+        return ds._fluxes_from_mode0(pr, md)[0].double().numpy(), md, ds, prop, bc
 
     def jax_xla(ds, prop, bc, dtype):
         opts = {f: getattr(ds.options, f) for f in

@@ -117,11 +117,13 @@ def test_unported_inputs_raise():
     # per-call band edges are ported; half a pair is refused
     with pytest.raises(ValueError, match="wvnmhi"):
         ds.forward(prop, dict(albedo=0.1, btemp=250.0, wvnmlo=1.0), temf)
-    for flag in ("usrtau", "usrang", "ibcnd", "output_uum"):
-        with pytest.raises(NotImplementedError, match=f"{flag}.*item 9"):
-            _tiny(flags=FLAGS + "," + flag)
-    with pytest.raises(NotImplementedError, match="print-fluxes.*item 9"):
-        _tiny(flags=FLAGS + ",print-fluxes")
+    # the radiance flags are ported; ibcnd is a special mode, not a flux
+    # solve, and forward refuses it as the JAX package does
+    for flag in ("usrtau", "usrang", "output_uum", "print-fluxes"):
+        _tiny(flags=FLAGS + "," + flag)
+    ds_ibcnd, prop_i, temf_i = _tiny(flags=FLAGS + ",ibcnd")
+    with pytest.raises(ValueError, match="albedo_transmissivity"):
+        ds_ibcnd.forward(prop_i, dict(albedo=0.1, btemp=250.0), temf_i)
     with pytest.raises(ValueError, match="unknown"):
         _tiny(flags=FLAGS + ",bogus")
     with pytest.raises(ValueError, match="kernel"):

@@ -403,21 +403,31 @@ def test_refusals(what):
         with pytest.raises(ValueError, match="Unknown attenuator"):
             RadiationBand(bad, device="cpu")
     elif what == "band_radiance":
-        band = RadiationBand(_band(outdirs="(0., 0.)"), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 9"):
+        # ported; a band without out-directions has no radiances to give
+        band = RadiationBand(_band(), device="cpu")
+        with pytest.raises(ValueError, match="no outdirs"):
             band.band_radiance(None, None, {})
-    else:
-        flags = "broad_band" if what == "broad_band" else ""
+    elif what == "broad_band":
         opts = RadiationOptions(bands=("b",), band_options=(_band(),))
-        rad = Radiation(opts.set_flags(flags), device="cpu")
-        if what == "broad_band":
-            with pytest.raises(NotImplementedError, match="broad_band"):
-                rad.forward(torch.ones((1, 1, 1)), torch.ones(1), {})
-        else:
-            with pytest.raises(NotImplementedError, match="item 9"):
-                rad.band_radiances(None, None, {})
-            with pytest.raises(NotImplementedError, match="item 9"):
-                rad.write_radiances("x", None, None, {})
+        rad = Radiation(opts.set_flags("broad_band"), device="cpu")
+        with pytest.raises(NotImplementedError, match="broad_band"):
+            rad.forward(torch.ones((1, 1, 1)), torch.ones(1), {})
+    else:
+        # ported; a ray that is not on the solver's direction grids is
+        # refused, where the JAX package takes the nearest grid point
+        opts = RadiationOptions(bands=("b",),
+                                band_options=(_band(outdirs="(0., 0.)"),))
+        rad = Radiation(opts, dtype=torch.float64, device="cpu")
+        solver = rad.bands["b"].rtsolver
+        rad.bands["b"].rtsolver = Disort(solver.options.replace(
+            user_mu=(0.5,), kernel="torch"))
+        args = (torch.ones((1, 1, 1), dtype=torch.float64),
+                torch.ones(1, dtype=torch.float64), {},
+                dict(wavenumber=torch.tensor([5000.0], dtype=torch.float64)))
+        with pytest.raises(ValueError, match="not on the solver's grids"):
+            rad.band_radiances(*args)
+        with pytest.raises(ValueError, match="not on the solver's grids"):
+            rad.write_radiances("x", *args)
 
 
 def test_entry_points_need_cuda_unless_cpu(nodes, monkeypatch, tmp_path):

@@ -3,13 +3,16 @@
 
     python tools/profile_torch_step.py [--ncol 8192] [--nstr 8] [--trace PATH]
     python tools/profile_torch_step.py --yaml lbl [--ncol 16] [--fuse]
+    python tools/profile_torch_step.py --radiances [--ncol 512]
 
 By default the step is ``Disort.forward`` on the ``bench.py`` problem (8
 g-points x ncol columns x 100 layers, ``lamber,onlyfl,planck``) as
 ``chip_smoke.py`` builds it; with ``--yaml ck|lbl`` it is
 ``Radiation.forward`` of ``examples/amars_yaml_torch.py`` (amarsw-lbl at
 0.1 cm^-1: 19,995 bins x ncol columns x 40 layers), sequential or with
-``--fuse``.  Runs 3 steps under ``torch.profiler`` and prints device time
+``--fuse``; with ``--radiances`` it is ``Disort.intensities`` on
+``chip_smoke.radiance_problem`` (``bench_extra.py``'s radiance
+configuration: 32 waves x ncol columns x 40 layers, nstr 8).  Runs 3 steps under ``torch.profiler`` and prints device time
 by kernel plus the device's busy share of the steps' wall time.
 ``--trace`` writes a Chrome trace.
 """
@@ -31,6 +34,7 @@ def main() -> None:
                     help="columns (default 8192, or 16 with --yaml)")
     ap.add_argument("--yaml", choices=("ck", "lbl"), default=None)
     ap.add_argument("--fuse", action="store_true")
+    ap.add_argument("--radiances", action="store_true")
     ap.add_argument("--nstr", type=int, default=8)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None)
@@ -52,6 +56,15 @@ def main() -> None:
 
         def step():
             return rad.forward(*inputs, fuse_bands=args.fuse)
+    elif args.radiances:
+        from chip_smoke import RAD_SHAPE, radiance_problem
+
+        shape = (RAD_SHAPE[0], args.ncol or RAD_SHAPE[1]) + RAD_SHAPE[2:]
+        ds, prop, bc = radiance_problem(torch.float32, dev, "cuda",
+                                        shape=shape)
+
+        def step():
+            return ds.intensities(prop, bc)["uu"]
     else:
         from chip_smoke import bench_problem
 
