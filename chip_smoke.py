@@ -128,7 +128,23 @@ or more:
 14. ``Radiation.band_radiances`` on ``tests/test_band.py:358-390``'s band
     (S8 + H2SO4, three out-directions) at 64 bins x 16 columns x 40 layers,
     nstr 8: one launch each of K1 beam, K2 and K5; within 1e-4 of max|ref|
-    of the float64 plain path.
+    of the float64 plain path;
+15. ``BeerLambert.forward`` (no kernel: tensor code) at 8 x 8192 x 100,
+    nstr 8, thermal with the bins' edges and a beam, float32 on the card
+    against float64 on the card (1e-4 of max|flux|), and ``toa_radiance``
+    with alpha = 0.5 likewise; both timed;
+16. the sharded bench problem (``bench.scaling.build_sharded_step``: 8
+    g-points x 8192 columns x 100 layers, nstr 8, eight distinct bins
+    tiling 1-500 cm^-1) through ``parallel.sharded_band_flux`` at world
+    size 1 over NCCL: K1, K2 and K3 launched once; bit-equal to the
+    unsharded ``forward`` + weighted sum; against the float64 plain path
+    (1e-4 of max|flux|); the sharded and unsharded steps timed in turns,
+    the NCCL ``all_reduce`` alone; K1-K3 on the path's inputs;
+17. the same problem on two ranks sharing the card over gloo with CUDA
+    tensors, on the (col x wave) meshes (2, 1) and (1, 2): each rank
+    launches K1, K2 and K3 once per step, its band flux within rtol 5e-6,
+    atol 1e-8 of phase 16's unsharded result, each rank's step timed;
+    then ``bench.scaling.partition_overhead_run`` at 8192 columns.
 
 Any failure raises.  The last three lines are the ``nvidia-smi``
 card line, a JSON object of per-kernel results and
@@ -411,6 +427,50 @@ def records_line(recs) -> str:
         f"{r['name']} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
         f"{r['bound_ms']:.3f} ms by {r['bound_by']}, max|err|/max|ref| "
         f"{r['max_rel_err']:.2e}, {r['tolerance']})" for r in recs)
+
+
+# ---- the sharded band flux on two ranks sharing the card (phase 17) --------
+
+SHARDED_SHAPE = (8, 8192, 100, 8)
+PHASE17_MESHES = ((2, 1), (1, 2))
+
+
+def phase17_rank(rank: int, n: int, out: str) -> None:
+    """One rank of phase 17 (run by ``parallel.spawn``): the sharded bench
+    step on each mesh, its launches and time, its band flux saved to
+    ``<out>``, then ``partition_overhead_run``; a JSON record per rank."""
+    import torch
+
+    from pyharp_tpu_torch.bench.scaling import (build_sharded_step,
+                                                partition_overhead_run)
+    from pyharp_tpu_torch.parallel import make_radiation_mesh, rank_device
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device("cuda")
+    nwave, ncol, nlyr, nstr = SHARDED_SHAPE
+    rec = {}
+    for n_col, n_wave in PHASE17_MESHES:
+        mesh = make_radiation_mesh(n_col, n_wave)
+        step, args = build_sharded_step(mesh, nwave, ncol, nlyr, nstr,
+                                        device=dev, kernel="cuda")
+        K.reset_launches()
+        got = step(*args)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        expect_launches(launches, stage1_isotropic=1, bvp_forward=1,
+                        bvp_backward_flux=1)
+        tag = f"{n_col}x{n_wave}"
+        np.save(f"{out}/rank{rank}_{tag}.npy", got.cpu().numpy())
+        rec[tag] = dict(launches=launches, ms=cuda_ms(lambda: step(*args), 5),
+                        col_index=mesh.index("col"))
+        del step, args, got
+    rec["partition"] = partition_overhead_run(ncol_total=ncol, nwave=nwave,
+                                              nlyr=nlyr, nstr=nstr,
+                                              device=dev)
+    rec["device"] = torch.cuda.get_device_name(dev)
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump(rec, f)
 
 
 # ---- problems -------------------------------------------------------------
@@ -1733,6 +1793,139 @@ def main() -> None:
               f"{tuple(got.shape)}, all > 0; max|err|/max|ref| vs the float64 "
               f"plain path {e14:.2e} (<= 1e-4)")
     del rad, args, rad64, args64, got, want
+
+    # ---- phase 15: Beer-Lambert at the bench shape ----------------------------
+    from pyharp_tpu_torch.bench import scaling
+    from pyharp_tpu_torch.rt import BeerLambert, BeerLambertOptions
+    from pyharp_tpu_torch.rt import toa_radiance
+
+    nwave, ncol, nlyr, nstr = SHARDED_SHAPE
+
+    def beer_lambert(dtype):
+        ds, prop, bc, temf, _ = scaling.bench_problem(
+            nwave, ncol, nlyr, nstr, dtype, dev, "torch")
+        bl = BeerLambert(BeerLambertOptions(
+            nstr=nstr, wave_lower=ds.options.wave_lower,
+            wave_upper=ds.options.wave_upper))
+        kw = dict(dtype=dtype, device=dev)
+        bc = dict(bc, fbeam=torch.full((nwave, ncol), float(np.pi), **kw),
+                  umu0=torch.linspace(0.2, 1.0, ncol, **kw).expand(nwave,
+                                                                   ncol))
+        # toa_radiance: the layers top-down, the levels' Planck source
+        tau = prop[..., 0].flip(-1)
+        src = temf.flip(-1)[None] ** 4 * 5.67e-8 / np.pi
+        mu = torch.tensor([0.3, 0.6, 1.0], **kw)
+        return bl, (prop, bc, temf), (tau, src.expand(nwave, -1, -1), mu)
+
+    bl, args, targs = beer_lambert(torch.float32)
+    bl64, args64, targs64 = beer_lambert(torch.float64)
+    got = bl.forward(*args)
+    want = bl64.forward(*args64)
+    e15 = rel_err(got.double(), want)
+    assert got.shape == (nwave, ncol, nlyr + 1, 2), got.shape
+    assert bool(torch.isfinite(got).all()) and e15 <= 1e-4, e15
+    rad = toa_radiance(*targs, alpha=0.5)
+    rad64 = toa_radiance(*targs64, alpha=0.5)
+    e15t = rel_err(rad.double(), rad64)
+    assert rad.shape == (nwave, ncol, 3) and e15t <= 1e-4, e15t
+    ms_bl = cuda_ms(lambda: bl.forward(*args), 10)
+    ms_toa = cuda_ms(lambda: toa_radiance(*targs, alpha=0.5), 10)
+    say("15", f"BeerLambert.forward {nwave}x{ncol}x{nlyr} nstr {nstr}, "
+              f"thermal with the bins' edges and a beam: max|err|/max|flux| "
+              f"float32 vs float64 on the card {e15:.2e} (<= 1e-4), "
+              f"{ms_bl:.3f} ms; toa_radiance alpha 0.5, 3 rays: {e15t:.2e} "
+              f"(<= 1e-4), {ms_toa:.3f} ms [{card}]")
+    del bl, bl64, args, args64, targs, targs64, got, want, rad, rad64
+
+    # ---- phase 16: the sharded bench problem at world size 1 over NCCL --------
+    import torch.distributed as dist
+
+    from pyharp_tpu_torch.parallel import (init_distributed,
+                                           make_radiation_mesh)
+    from pyharp_tpu_torch.parallel.dryrun import _free_port
+    from pyharp_tpu_torch.parallel.sharded import _with_band_edges
+
+    init_distributed(f"localhost:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_radiation_mesh(1, 1)
+        step, sargs = scaling.build_sharded_step(
+            mesh, nwave, ncol, nlyr, nstr, device=dev, kernel="cuda")
+        K.reset_launches()
+        got = step(*sargs)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        expect_launches(launches, stage1_isotropic=1, bvp_forward=1,
+                        bvp_backward_flux=1)
+        ds, prop, bc, temf, w = scaling.bench_problem(
+            nwave, ncol, nlyr, nstr, torch.float32, dev, "cuda")
+
+        def unsharded():
+            return torch.einsum("g,g...->...", w, ds.forward(prop, bc, temf))
+
+        ref = unsharded()
+        assert got.shape == (ncol, nlyr + 1, 2), got.shape
+        assert torch.equal(got, ref), float((got - ref).abs().max())
+        ds64, prop64, bc64, temf64, w64 = scaling.bench_problem(
+            nwave, ncol, nlyr, nstr, torch.float64, dev, "torch")
+        e16 = rel_err(got.double(), torch.einsum(
+            "g,g...->...", w64, ds64.forward(prop64, bc64, temf64)))
+        assert bool(torch.isfinite(got).all()) and e16 <= 1e-4, e16
+        del ds64, prop64, bc64, temf64, w64
+        ms16 = [cuda_ms(unsharded, 10), cuda_ms(lambda: step(*sargs), 10),
+                cuda_ms(lambda: step(*sargs), 10), cuda_ms(unsharded, 10)]
+        red = got.clone()
+        ms_red = cuda_ms(lambda: dist.all_reduce(
+            red, group=mesh.get_group("wave")), 10)
+        say("16", f"sharded band flux {nwave}x{ncol}x{nlyr} nstr {nstr}, "
+                  f"mesh (1, 1) over NCCL: launches {launches}; bit-equal to "
+                  f"the unsharded forward + weighted sum; max|err|/max|flux| "
+                  f"vs float64 plain {e16:.2e} (<= 1e-4); ms/step unsharded, "
+                  f"sharded, sharded, unsharded: "
+                  + ", ".join(f"{m:.3f}" for m in ms16)
+                  + f"; the all_reduce of the {tuple(red.shape)} float32 band "
+                  f"flux alone {ms_red:.3f} ms [{card}]")
+        path = f"sharded bench {nwave}x{ncol}x{nlyr} nstr {nstr}, mesh 1x1"
+        pr = ds._prepare(prop, _with_band_edges(ds, bc, prop), temf)
+        md = ds._solve_mode(pr)
+        recs = thermal_records(path, launches, pr, md, ds._ang0)
+        say("16", "per kernel on the sharded path's inputs: "
+                  + records_line(recs))
+        kernels_json += recs
+        ref17 = ref.double().cpu().numpy()
+        del step, sargs, got, ref, red, ds, prop, bc, temf, pr, md
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- phase 17: two ranks sharing the card over gloo -----------------------
+    from pyharp_tpu_torch.parallel import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(phase17_rank, 2, tmp, backend="gloo", device="cuda")
+        recs17 = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                  for r in range(2)]
+        msgs = []
+        for n_col, n_wave in PHASE17_MESHES:
+            tag = f"{n_col}x{n_wave}"
+            errs = []
+            for r, rec in enumerate(recs17):
+                part = np.load(Path(tmp, f"rank{r}_{tag}.npy"))
+                m = ncol // n_col
+                want = ref17[rec[tag]["col_index"] * m:][:m]
+                np.testing.assert_allclose(part, want, rtol=5e-6, atol=1e-8)
+                errs.append(float(np.abs(part - want).max()
+                                  / np.abs(want).max()))
+            msgs.append(
+                f"mesh ({n_col}, {n_wave}): launches per rank "
+                + " / ".join(str(rec[tag]["launches"]) for rec in recs17)
+                + "; max|err|/max|flux| vs the unsharded result "
+                + " / ".join(f"{e:.2e}" for e in errs)
+                + " (rtol 5e-6, atol 1e-8); ms/step per rank "
+                + " / ".join(f"{rec[tag]['ms']:.3f}" for rec in recs17))
+    say("17", f"two ranks on one card over gloo ({recs17[0]['device']}): "
+              + "; ".join(msgs) + f" [{card}]")
+    say("17", "partition_overhead_run "
+              + json.dumps(recs17[0]["partition"]) + f" [{card}]")
 
     print(card)
     print(json.dumps({"kernels": kernels_json}))

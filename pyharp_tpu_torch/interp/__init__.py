@@ -4,6 +4,7 @@ from .interpn import interpn, interp1, locate
 from .layer2level import (
     Layer2LevelOptions,
     layer2level,
+    layer2level_with_mask,
     k2ndOrder,
     k4thOrder,
     kExtrapolate,
@@ -12,6 +13,6 @@ from .layer2level import (
 
 __all__ = [
     "interpn", "interp1", "locate",
-    "Layer2LevelOptions", "layer2level",
+    "Layer2LevelOptions", "layer2level", "layer2level_with_mask",
     "k2ndOrder", "k4thOrder", "kExtrapolate", "kConstant",
 ]

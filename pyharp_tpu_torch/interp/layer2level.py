@@ -83,3 +83,12 @@ def layer2level(var: Tensor,
     if options.logy:
         out = torch.exp(out)
     return out
+
+
+def layer2level_with_mask(var: Tensor,
+                          options: Layer2LevelOptions = Layer2LevelOptions()
+                          ) -> tuple[Tensor, Tensor]:
+    """:func:`layer2level` and the mask of negative level values, which the
+    caller checks (the reference aborts on them, ``layer2level.cpp:68-77``)."""
+    out = layer2level(var, options)
+    return out, out < 0

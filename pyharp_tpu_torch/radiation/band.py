@@ -11,10 +11,11 @@
   blackboard and runs the solver (with ``layer2level(temp)`` level
   temperatures when ``atm`` has ``temp``).
 
-``band_radiance`` solves the radiances on the band's direction grids and
-gathers the TOA value of each configured ray.  The property layout is
-``(nwave, ncol, nlyr, nprop)`` throughout.  Not ported yet: the Beer-Lambert
-solver (ROADMAP.md section 1 item 10), which raises.
+The solver is Disort, or Beer-Lambert (``solver_name="beer_lambert"``)
+with the band's per-bin edges.  ``band_radiance`` solves the radiances on
+the band's direction grids (Disort only) and gathers the TOA value of each
+configured ray.  The property layout is ``(nwave, ncol, nlyr, nprop)``
+throughout.
 """
 
 from __future__ import annotations
@@ -36,13 +37,11 @@ from ..opacity.clouds import Grey, SimpleCloud
 from ..opacity.freedman import FreedmanMean, FreedmanSimple
 from ..opacity.radio import RadioCIA, RadioElectron, RadioVVWAbsorber
 from ..opacity.rfm import RFM
+from ..rt.beer_lambert import BeerLambert, BeerLambertOptions
 from ..rt.disort.disort import Disort, DisortOptions
 from ..utils.directions import (GRID_TOL, get_direction_grids,
                                 parse_radiation_directions)
 from .shared import shared
-
-ITEM_10 = "ROADMAP.md section 1 item 10 (Beer-Lambert)"
-
 
 def _with_lines(table: str):
     """A radio line absorber reading ``table`` unless the options name
@@ -91,17 +90,6 @@ def register_attenuator(name: str, builder: Callable[..., Any]) -> None:
 
 
 @dataclasses.dataclass(frozen=True)
-class BeerLambertOptions:
-    """The JAX package's Beer-Lambert solver options, so band options carry
-    over field by field; the solver itself is ROADMAP.md item 10."""
-
-    alpha: float = 0.0
-    nstr: int = 8
-    wave_lower: tuple[float, ...] = ()
-    wave_upper: tuple[float, ...] = ()
-
-
-@dataclasses.dataclass(frozen=True)
 class RadiationBandOptions:
     """Mirror of the JAX package's ``RadiationBandOptions``."""
 
@@ -136,11 +124,7 @@ class RadiationBand:
             if len(options.wave_lower) != len(options.wave_upper):
                 raise ValueError(
                     "wave_lower and wave_upper must have the same size")
-        if options.solver_name == "beer_lambert":
-            raise NotImplementedError(
-                f"band {options.name}: the Beer-Lambert solver is not "
-                f"ported yet: {ITEM_10}")
-        if options.solver_name != "disort":
+        if options.solver_name not in ("disort", "beer_lambert"):
             raise ValueError(f"Unknown solver: {options.solver_name}")
         self.options = options
         self.dtype = dtype
@@ -163,14 +147,19 @@ class RadiationBand:
         ray_out = (parse_radiation_directions(options.outdirs)
                    if options.outdirs else np.zeros((0, 2)))
         self.rayout = np.asarray(ray_out)       # (nray, 2) = (mu, phi)
-        uphi, umu = get_direction_grids(ray_out)
-        dop = options.disort.replace(
-            nlyr=options.nlyr, ncol=options.ncol, user_phi=tuple(uphi),
-            user_mu=tuple(umu), wave_lower=options.wave_lower,
-            wave_upper=options.wave_upper)
-        if options.wave_lower:
-            dop = dop.replace(nwave=len(options.wave_lower))
-        self.rtsolver = Disort(dop)
+        if options.solver_name == "beer_lambert":
+            self.rtsolver = BeerLambert(dataclasses.replace(
+                options.beer_lambert, wave_lower=options.wave_lower,
+                wave_upper=options.wave_upper))
+        else:
+            uphi, umu = get_direction_grids(ray_out)
+            dop = options.disort.replace(
+                nlyr=options.nlyr, ncol=options.ncol, user_phi=tuple(uphi),
+                user_mu=tuple(umu), wave_lower=options.wave_lower,
+                wave_upper=options.wave_upper)
+            if options.wave_lower:
+                dop = dop.replace(nwave=len(options.wave_lower))
+            self.rtsolver = Disort(dop)
 
     # ------------------------------------------------------------------
 
@@ -241,6 +230,8 @@ class RadiationBand:
         A ray farther than the grids' own tolerance (``GRID_TOL``) from
         every grid point raises: the gather is exact or refused, never the
         nearest point."""
+        if not isinstance(self.rtsolver, Disort):
+            raise ValueError("band_radiance requires the Disort solver")
         if self.rayout.shape[0] == 0:
             raise ValueError(f"band {self.options.name}: no outdirs configured")
         atm = self.atm_with_spectral(atm)
@@ -273,7 +264,10 @@ class RadiationBand:
         thermal bands with per-bin edges emit each bin's own Planck integral,
         so the band flux is a plain sum over bins.  Beam-only bands follow
         fbeam's units (spectral flux density) and integrate as
-        sum(width_i F_i)."""
+        sum(width_i F_i).  Beer-Lambert integrates Planck over each bin
+        whenever the band has edges."""
+        if not isinstance(self.rtsolver, Disort):
+            return bool(self.options.wave_lower)
         return (self.rtsolver.options.has("planck")
                 and bool(self.options.wave_lower))
 

@@ -152,7 +152,10 @@ class Radiation:
     @staticmethod
     def _fuse_key(band: RadiationBand):
         """Bands with equal keys share one Disort configuration up to the
-        wave axis (and one level interpolation) and can be solved as one."""
+        wave axis (and one level interpolation) and can be solved as one.
+        A band with another solver has no key and is solved alone."""
+        if not isinstance(band.rtsolver, Disort):
+            return None
         o = band.rtsolver.options
         return (o.flags, o.nstr, o.nmom, o.nlyr, o.ncol, o.user_mu,
                 o.user_phi, o.user_tau, o.deltam, o.accuracy, o.kernel,
@@ -162,7 +165,9 @@ class Radiation:
         """Fuse key -> the names of the bands that share it."""
         groups: dict = {}
         for name, band in self.bands.items():
-            groups.setdefault(self._fuse_key(band), []).append(name)
+            key = self._fuse_key(band)
+            groups.setdefault(("solo", name) if key is None else key,
+                              []).append(name)
         return groups
 
     def _forward_fused(self, conc, dz, bc, atm) -> dict[str, Tensor]:

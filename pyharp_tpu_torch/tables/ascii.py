@@ -1,6 +1,7 @@
 """ASCII table ingestion, host side in numpy (port of
 ``pyharp_tpu/tables/ascii.py``: comment stripping, whitespace-separated
-numeric tables, the aMars aerosol profile)."""
+numeric tables, their row and column counts, header-named columns, the
+aMars aerosol profile)."""
 
 from __future__ import annotations
 
@@ -33,6 +34,28 @@ def read_data_table(name: str) -> np.ndarray:
     if data.size == 0:
         raise ValueError(f"Empty file: {path}")
     return data
+
+
+def get_num_cols(name: str) -> int:
+    return read_data_table(name).shape[1]
+
+
+def get_num_rows(name: str) -> int:
+    return read_data_table(name).shape[0]
+
+
+def read_data_vector(name: str) -> dict[str, np.ndarray]:
+    """Column name -> column of a table whose first line names its columns
+    (after any ``#``); columns are ``col0, col1, ...`` when the names do
+    not match the column count."""
+    path = find_resource(name)
+    with open(path) as f:
+        first = f.readline()
+    names = first.lstrip("#").split()
+    data = read_data_table(name)
+    if len(names) != data.shape[1]:
+        names = [f"col{i}" for i in range(data.shape[1])]
+    return {n: data[:, i] for i, n in enumerate(names)}
 
 
 def read_stellar_flux(flux_file: str, wave_file: str

@@ -390,14 +390,10 @@ def _band(**kw):
     return RadiationBandOptions(name="b", attenuators=(("s8", op),), **kw)
 
 
-@pytest.mark.parametrize("what", ["beer_lambert", "band_radiance",
-                                  "band_radiances", "broad_band",
-                                  "unknown_attenuator"])
+@pytest.mark.parametrize("what", ["band_radiance", "band_radiances",
+                                  "broad_band", "unknown_attenuator"])
 def test_refusals(what):
-    if what == "beer_lambert":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            RadiationBand(_band(solver_name="beer_lambert"), device="cpu")
-    elif what == "unknown_attenuator":
+    if what == "unknown_attenuator":
         bad = _band().replace(attenuators=(("x", AttenuatorOptions(
             type="nope", species_ids=(0,))),))
         with pytest.raises(ValueError, match="Unknown attenuator"):

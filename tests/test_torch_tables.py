@@ -195,3 +195,112 @@ def test_disort_options_carry_over(jkernel, tkernel):
     for k, v in dataclasses.asdict(jo).items():
         if k != "kernel":
             assert fields[k] == v, k
+
+
+# ---- the parity leftovers and the phase-moment generators -----------------
+
+@pytest.mark.parametrize("opts", [
+    dict(type="isotropic"), dict(type="rayleigh"),
+    dict(type="henyey_greenstein", gg=0.73),
+    dict(type="double_henyey_greenstein", gg1=0.8, gg2=-0.4, ff=0.65)])
+@pytest.mark.parametrize("nmom", [1, 8])
+def test_scattering_moments_f64(opts, nmom):
+    from pyharp_tpu.rt import scattering_moments as jsm
+    from pyharp_tpu.rt import PhaseMomentOptions as JPMO
+    from pyharp_tpu_torch.rt import scattering_moments as tsm
+    from pyharp_tpu_torch.rt import PhaseMomentOptions as TPMO
+
+    got = tsm(nmom, TPMO(**opts), device="cpu")
+    assert got.dtype == F64 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), jsm(nmom, JPMO(**opts)))
+
+
+@pytest.mark.parametrize("opts", [dict(type="henyey_greenstein", gg=1.0),
+                                  dict(type="henyey_greenstein", gg=-1.0),
+                                  dict(type="mie")])
+def test_scattering_moments_refusals_match(opts):
+    from pyharp_tpu.rt import scattering_moments as jsm
+    from pyharp_tpu.rt import PhaseMomentOptions as JPMO
+    from pyharp_tpu_torch.rt import scattering_moments as tsm
+    from pyharp_tpu_torch.rt import PhaseMomentOptions as TPMO
+
+    with pytest.raises(ValueError) as jerr:
+        jsm(4, JPMO(**opts))
+    with pytest.raises(ValueError) as terr:
+        tsm(4, TPMO(**opts), device="cpu")
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_search_paths_and_find_resource(tmp_path):
+    """The same edits to both packages' search paths give the same lists
+    and the same resolved files; the defaults are restored after."""
+    from pyharp_tpu.tables import resource as jres
+    from pyharp_tpu_torch.tables import resource as tres
+
+    saved = jres.get_search_paths(), tres.get_search_paths()
+    assert saved[0][0] == saved[1][0] == "."
+    first, second = tmp_path / "a", tmp_path / "b"
+    first.mkdir()
+    second.mkdir()
+    (second / "only_here.txt").write_text("1 2\n")
+    (first / "both.txt").write_text("1\n")
+    (second / "both.txt").write_text("2\n")
+    try:
+        for res in (jres, tres):
+            res.set_search_paths(f"{first}:{second}")
+        assert tres.get_search_paths() == [str(first), str(second)] + \
+            saved[1][-1:]
+        for name in ("only_here.txt", "both.txt", "s8_k_fuller.txt"):
+            assert tres.find_resource(name) == jres.find_resource(name)
+        assert tres.find_resource("both.txt") == str(first / "both.txt")
+        for res in (jres, tres):
+            res.add_resource_directory(str(second))
+            res.add_resource_directory(str(tmp_path), prepend=False)
+        assert tres.get_search_paths() == jres.get_search_paths()[:-1] + \
+            tres.get_search_paths()[-1:]
+        assert tres.find_resource("both.txt") == str(second / "both.txt")
+        with pytest.raises(FileNotFoundError, match="add_resource_directory"):
+            tres.find_resource("no_such_table.txt")
+    finally:
+        for res, paths in zip((jres, tres), saved):
+            res.set_search_paths(paths[:-1])
+    assert (jres.get_search_paths(), tres.get_search_paths()) == saved
+
+
+@pytest.mark.parametrize("header", ["# wave kext ssa\n", "# two names\n",
+                                    ""])
+def test_ascii_counts_and_vectors(tmp_path, header):
+    from pyharp_tpu.tables import ascii as jascii
+    from pyharp_tpu_torch.tables import ascii as tascii
+
+    rng = np.random.default_rng(len(header))
+    path = tmp_path / "table.txt"
+    rows = rng.uniform(-5.0, 5.0, (7, 3))
+    path.write_text(header + "\n".join(" ".join(f"{v:.17g}" for v in r)
+                                       + "  # note" for r in rows) + "\n")
+    name = str(path)
+    assert tascii.get_num_rows(name) == jascii.get_num_rows(name) == 7
+    assert tascii.get_num_cols(name) == jascii.get_num_cols(name) == 3
+    got, want = tascii.read_data_vector(name), jascii.read_data_vector(name)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_layer2level_with_mask_and_top_level_names():
+    import pyharp_tpu
+    import pyharp_tpu_torch
+
+    rng = np.random.default_rng(5)
+    var = rng.uniform(-1.0, 3.0, (4, 9))       # some levels come out < 0
+    for opts in (dict(), dict(order=2, blower=1, bupper=0)):
+        got, gmask = tl2l.layer2level_with_mask(
+            _t(var), tl2l.Layer2LevelOptions(**opts))
+        want, wmask = jl2l.layer2level_with_mask(
+            jnp.asarray(var), jl2l.Layer2LevelOptions(**opts))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-12, atol=1e-15)
+        np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
+        assert gmask.any()
+    for name in ("k2ndOrder", "k4thOrder", "kExtrapolate", "kConstant"):
+        assert getattr(pyharp_tpu_torch, name) == getattr(pyharp_tpu, name)
