@@ -99,11 +99,12 @@ or more:
     every column, timed), and K6 on them as in phase 10;
 12. ``radiances_8str_4mu_2phi_3tau`` (``bench_extra.py:134-168``) at full
     width, 32 x 512 x 40, nstr 8, 4 user cosines x 2 azimuths x 3 user
-    depths, the TMS/IMS corrections, tau and ssa drawn from a seeded
-    ``torch.Generator``: ``Disort.intensities`` launches K4 nstr times, K2
-    and K5 twice each, K1, K3 and K6 never; ``flux`` and ``uu`` against the
-    float64 plain path on every column (``radiance_errors``: 1e-4 of
-    max|flux|, and of each column's own max|uu| at every (tau, phi, mu),
+    depths, the TMS/IMS corrections, tau and ssa drawn with numpy as
+    ``bench_extra.py:149-153`` draws them: ``Disort.intensities`` launches
+    K4 nstr times, K2 and K5 twice each, K1, K3 and K6 never; ``flux`` and
+    ``uu`` against the float64 plain path on every column
+    (``radiance_errors``: 1e-4 of max|flux|, and of each column's own
+    max|uu| at every (tau, phi, mu),
     where no layer of any mode is within ``RESONANCE_MARGIN`` of a beam
     resonance; the near columns against the float64 plain path run with
     float32's resonance floor, flux to ``NEAR_RESONANCE_TOL`` of max|flux|
@@ -144,8 +145,24 @@ or more:
     tensors, on the (col x wave) meshes (2, 1) and (1, 2): each rank
     launches K1, K2 and K3 once per step, its band flux within rtol 5e-6,
     atol 1e-8 of phase 16's unsharded result, each rank's step timed;
-    then ``bench.scaling.partition_overhead_run`` at 8192 columns.
+    then ``bench.scaling.partition_overhead_run`` at 8192 columns;
+18. the measurement drivers of ``pyharp_tpu_torch.bench`` on the card,
+    their output relayed: ``roofline_run`` (K4, K1, K2 + K5, K2 + K3 and K6
+    in both modes at the bench shape against their bounds and the BVP's
+    min-bytes floor), ``stages`` (the JAX tool's stage timings, and
+    ``Disort.forward`` on the bench problem split into preparation, stage
+    1, glue, BVP and flux assembly: the rows within 10% of the whole, the
+    chained stages bit-equal to it), ``columns`` (the
+    ``columns_per_s_per_chip_8str_100lyr`` line), ``extra`` (the four
+    ``bench_extra.py`` configurations at full width, each one's launches
+    asserted as phases 7, 8 and 12 assert them) and ``rmse_run`` in
+    float32 through K1 (thermal and beam), K4, K2, K3 and K5:
+    ``tests/test_oracle_mc.py``'s three Monte Carlo cases at 4e6 photons
+    within 5e-3, the H-function anchor within 2e-3, and the whole matrix
+    at 1e6 photons.
 
+The problems, the roofline counts and the card's peaks come from
+``pyharp_tpu_torch.bench`` (``problems``, ``roofline_run``, ``profile``).
 Any failure raises.  The last three lines are the ``nvidia-smi``
 card line, a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.
@@ -154,11 +171,13 @@ card line, a JSON object of per-kernel results and
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import re
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 from unittest import mock
 
@@ -178,9 +197,6 @@ KERNEL_TABLE = {
     "bvp_backward": (CSRC + "bvp_backward.cu", TPU + "846"),
     "bvp_fused": (CSRC + "bvp_fused.cu", TPU + "964"),
 }
-# the H100 SXM's published peaks: HBM bytes/s and float32 (non-tensor) flop/s
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
 AMARS_SW_TOA = 408.17
 
 
@@ -306,70 +322,6 @@ def ptxas_summary(log: str) -> dict[str, str]:
     return out
 
 
-# ---- the work each kernel must do: bytes and float32 operations -----------
-
-def _lu_flops(n: int, k: int) -> int:
-    """Flops of one n x n pivoted LU solve with k right-hand sides."""
-    elim = sum((n - c - 1) * (1 + 2 * (n - c - 1 + k)) for c in range(n))
-    return elim + n + k * n * n
-
-
-def kernel_flops(name: str, N: int, L: int, B: int, *, nmom: int = 0,
-                 sweeps: int = 0, thermal: bool = True,
-                 beam: bool = False, flux_only: bool = False) -> int:
-    """Float32 operations of one call, counted from the algorithm's terms
-    (each add, multiply, divide, square root or compare one operation; the
-    selects of pivoting and clamps not counted), so a lower bound of the
-    work the kernel does on these inputs."""
-    if name in ("stage1_isotropic", "stage1_isotropic_beam"):
-        bis = 10 if N <= 4 else 12
-        per = (N * (bis * (6 * N + 3) + 2 * (6 * N + 9))
-               + N * (N * max(N - 2, 0) + 10 * N + 4) + 3 * N)
-        if name.endswith("_beam"):
-            per += _lu_flops(N, 1) + N * N + 6 * N + 2 * N * N + 2 * N + 7 * N + 4
-        return per * L * B
-    if name == "stage1_general":
-        nuse = N * N * 2 + N * (N + 1) // 2 + (N * N if thermal or beam else 0)
-        terms = min(nmom, 2 * N - 1) // 2 + 1          # per parity
-        per = (2 * terms * nuse + 6 * (N * (N + 1) // 2 + N * N)
-               + N ** 3 // 3 + 2 * N + 2 * N * N * (N + 1) + 2 * N * N
-               + sweeps * N * (N - 1) // 2 * (22 + 6 * (N - 2) + 6 * N)
-               + 2 * N + N * N * (N + 2) + 3 * N * N + N * (2 * N * N + 3)
-               + N * (6 * N + 2) + 2 * N)
-        if thermal:
-            per += 2 * _lu_flops(N, 1) + 6 * N
-        if beam:
-            per += (2 * N * (4 * N + 2) + 8 * N + N * (2 * N + 4)
-                    + _lu_flops(N, 1) + 7 * N + 4 * N * N + 5 * N)
-        return per * L * B
-    M = 2 * N
-    if name == "bvp_fused":     # K2's forward, then K3's sums or K5's sweep
-        back = "bvp_backward_flux" if flux_only else "bvp_backward"
-        return (kernel_flops("bvp_forward", N, L, B)
-                + kernel_flops(back, N, L, B))
-    if name == "bvp_forward":
-        per = 4 * N ** 3 + 4 * N * N + _lu_flops(M, N + 1) + 4 * N * N * (N + 1)
-        return per * L * B
-    if name == "bvp_backward_flux":
-        return (14 * N * N + 4 * N) * L * B
-    if name == "bvp_backward":
-        return 9 * N * N * L * B
-    raise KeyError(name)
-
-
-def _tensors(xs):
-    import torch
-
-    return [x for x in xs if isinstance(x, torch.Tensor)]
-
-
-def stored_bytes(t) -> int:
-    """Bytes a kernel stores for the output ``t``: none for a broadcast view
-    of one element (``kernels.zero_particular``, K4's thermal particular
-    without a thermal source), else every element."""
-    return min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
-
-
 def near_err(got, ref, near) -> float:
     """max|err| / max|ref| on the ``near`` columns (the last axis), the
     largest over the outputs; max|ref| is taken over all columns."""
@@ -386,7 +338,10 @@ def kernel_record(name, path, launches, fn, plain, args, kw, check, tol,
     mask of the columns (the outputs' last axis) with a layer within
     ``RESONANCE_MARGIN`` of a beam resonance: ``check`` holds the other
     columns, the near ones are held to ``NEAR_RESONANCE_TOL`` of max|ref|
-    and their count and reading go into the entry."""
+    and their count and reading go into the entry.  The bound is
+    ``bench.roofline_run``'s from the bytes of ``reads`` and the outputs."""
+    from pyharp_tpu_torch.bench import roofline_run as R
+
     got, want = fn(*args, **kw), plain(*args, **kw)
     what = f"{name} on the {path} inputs"
     extra = {}
@@ -403,20 +358,16 @@ def kernel_record(name, path, launches, fn, plain, args, kw, check, tol,
     else:
         rel = check(got, want, what)
     if reads is None:
-        reads = _tensors(list(args) + list(kw.values()))
-    nbytes = (sum(t.numel() * t.element_size() for t in reads)
-              + sum(stored_bytes(t) for t in _tensors(got)))
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    ops_ms = flops / PEAK_F32 * 1e3
+        reads = list(args) + list(kw.values())
+    nbytes = R.tensor_bytes(reads, got)
+    bound_ms, bound_by = R.bound(nbytes, flops)
     src, tpu = KERNEL_TABLE[name]
     rec = dict(
         name=name, route="cuda", source=src, replaces=tpu, launches=launches,
         max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got, want)),
         ms=cuda_ms(lambda: fn(*args, **kw), 20),
         plain_ms=cuda_ms(lambda: plain(*args, **kw), 3),
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None, path=path, max_rel_err=rel, tolerance=tol,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, path=path, max_rel_err=rel, tolerance=tol,
         bytes=nbytes, flops=flops, **extra)
     del got, want
     return rec
@@ -474,70 +425,6 @@ def phase17_rank(rank: int, n: int, out: str) -> None:
 
 
 # ---- problems -------------------------------------------------------------
-
-def stage1_inputs(L, B, seed, device):
-    import torch
-
-    rng = np.random.default_rng(seed)
-    ssa = rng.uniform(0.0, 0.95, (L, B))
-    ssa.flat[rng.choice(L * B, max(1, L * B // 1000), replace=False)] = 0.0
-    ssa.flat[rng.choice(L * B, max(1, L * B // 1000), replace=False)] = 0.999999
-    arrs = (ssa, rng.uniform(0.001, 2.0, (L, B)), rng.uniform(0.0, 1.0, (L, B)),
-            rng.uniform(-0.2, 0.2, (L, B)))
-    return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrs]
-
-
-def bench_problem(nwave, ncol, nlyr, nstr, dtype, device, kernel, seed=0):
-    """``bench.build_problem`` for the port: a Disort and its inputs."""
-    import torch
-
-    from pyharp_tpu_torch import Disort, DisortOptions
-
-    disort = Disort(DisortOptions(
-        flags="lamber,quiet,onlyfl,planck", nwave=nwave, ncol=ncol,
-        nlyr=nlyr, nstr=nstr, nmom=nstr, wave_lower=(1.0,) * nwave,
-        wave_upper=(500.0,) * nwave, kernel=kernel))
-    rng = np.random.default_rng(seed)
-    prop = np.zeros((nwave, ncol, nlyr, 2), np.float32)
-    prop[..., 0] = rng.uniform(0.001, 0.8, (nwave, ncol, nlyr))
-    prop[..., 1] = rng.uniform(0.0, 0.6, (nwave, ncol, nlyr))
-    kw = dict(dtype=dtype, device=device)
-    bc = dict(umu0=torch.full((nwave, ncol), 0.5, **kw),
-              albedo=torch.full((nwave, ncol), 0.1, **kw),
-              btemp=torch.full((nwave, ncol), 300.0, **kw))
-    temf = np.linspace(200.0, 300.0, nlyr + 1, dtype=np.float32)
-    temf = torch.tensor(np.broadcast_to(temf, (ncol, nlyr + 1)).copy(), **kw)
-    weights = torch.full((nwave,), 1.0 / nwave, **kw)
-    return disort, torch.tensor(prop, **kw), bc, temf, weights
-
-
-def extra_problem(nwave, ncol, nlyr, nstr, g, dtype, device, kernel, seed=0,
-                  first=None):
-    """``bench_extra.build`` for the port, beam on, planck off: a Disort and
-    its inputs (``bench_extra.py:46-83``); with ``first``, only the first
-    waves of the same draw."""
-    import torch
-
-    from pyharp_tpu_torch import Disort, DisortOptions
-
-    nmom = nstr if g else 0
-    rng = np.random.default_rng(seed)
-    prop = np.zeros((nwave, ncol, nlyr, 2 + nmom), np.float32)
-    prop[..., 0] = rng.uniform(0.001, 0.8, (nwave, ncol, nlyr))
-    prop[..., 1] = rng.uniform(0.1, 0.95, (nwave, ncol, nlyr))
-    if nmom:
-        prop[..., 2:] = g ** np.arange(1, nmom + 1)
-    if first is not None:
-        nwave, prop = first, prop[:first]
-    disort = Disort(DisortOptions(
-        flags="lamber,quiet,onlyfl", nwave=nwave, ncol=ncol, nlyr=nlyr,
-        nstr=nstr, nmom=max(nmom, nstr), kernel=kernel))
-    kw = dict(dtype=dtype, device=device)
-    bc = dict(albedo=torch.full((nwave, ncol), 0.3, **kw),
-              fbeam=torch.full((nwave, ncol), float(np.pi), **kw),
-              umu0=torch.full((nwave, ncol), 0.7, **kw))
-    return disort, torch.tensor(prop, **kw), bc
-
 
 def hg_moments(g: float, nstr: int) -> np.ndarray:
     """Delta-M scaled Henyey-Greenstein moments g_1..g_nstr."""
@@ -629,50 +516,12 @@ def solve_and_check(ds, ds64, args, args64, want_launches, label):
 
 # ---- the radiance path -------------------------------------------------------
 
-# bench_extra.py:134-168, radiances_8str_4mu_2phi_3tau: (nwave, ncol, nlyr,
-# nstr), the user cosines, azimuths and depths
-RAD_SHAPE = (32, 512, 40, 8)
-RAD_MU = (-0.8, -0.4, 0.4, 0.8)
-RAD_PHI = (0.0, float(np.pi / 2))
-RAD_TAU = (0.5, 2.0, 5.0)
-RAD_FLAGS = "lamber,quiet,usrang,usrtau,intensity_correction"
-
-
-def radiance_problem(dtype, device, kernel, shape=RAD_SHAPE, seed=0):
-    """``bench_extra.py:134-168``'s radiance configuration for the port: a
-    Disort and its inputs (HG moments g_l = 0.7^l, beam mu0 = 0.7, F = pi,
-    albedo 0.2), tau and ssa drawn in float32 from a seeded
-    ``torch.Generator``, so every dtype sees the same values."""
-    import torch
-
-    from pyharp_tpu_torch import Disort, DisortOptions
-
-    nwave, ncol, nlyr, nstr = shape
-    disort = Disort(DisortOptions(
-        flags=RAD_FLAGS, nwave=nwave, ncol=ncol, nlyr=nlyr, nstr=nstr,
-        nmom=nstr, user_mu=RAD_MU, user_phi=RAD_PHI, user_tau=RAD_TAU,
-        kernel=kernel))
-    gen = torch.Generator().manual_seed(seed)
-    size = (nwave, ncol, nlyr)
-    prop = torch.zeros(size + (2 + nstr,), dtype=torch.float32)
-    prop[..., 0] = 0.01 + 0.49 * torch.rand(size, generator=gen)
-    prop[..., 1] = 0.1 + 0.8 * torch.rand(size, generator=gen)
-    prop[..., 2:] = torch.tensor(0.7 ** np.arange(1, nstr + 1))
-    kw = dict(dtype=dtype, device=device)
-    bc = dict(albedo=torch.full((nwave, ncol), 0.2, **kw),
-              fbeam=torch.full((nwave, ncol), float(np.pi), **kw),
-              umu0=torch.full((nwave, ncol), 0.7, **kw))
-    return disort, prop.to(**kw), bc
-
-
 def step_pieces(ds, prop, bc, reps: int) -> dict[str, float]:
     """Mean wall ms of each piece of ``ds.intensities(prop, bc)`` over the
     same ``reps`` steps after a warm-up, each piece ending in a
     synchronize: ``prepare``, ``m0`` (the m = 0 solve), ``modes`` (the
     modes m >= 1), ``radiances`` (sweeps, corrections, assembly); then,
     not part of the step, ``radiances`` without the modes m >= 1."""
-    import time
-
     import torch
 
     tot = dict(prepare=0.0, m0=0.0, modes=0.0, radiances=0.0,
@@ -866,6 +715,7 @@ def k6_record(path, pr, md, ang, flux_only: bool, ins=None, near=None):
     ``BVP_TOL`` on the path's inputs (phase 7).  On those columns K2 + K3/K5
     is held against the plain K2 then K3/K5 as well, and the reading
     printed beside K6's."""
+    from pyharp_tpu_torch.bench.roofline_run import kernel_flops
     from pyharp_tpu_torch.rt.disort import kernels as K
 
     if ins is None:
@@ -905,10 +755,42 @@ def k6_record(path, pr, md, ang, flux_only: bool, ins=None, near=None):
                  f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}")
 
 
+def plain_check(errs: dict):
+    """A ``check(name, got, want)`` for ``roofline_run`` and ``stages``:
+    a stage-1 row's outputs held to ``STAGE1_TOL`` of the plain version's,
+    a BVP row's (the kernels chained as the plain versions are) to
+    ``BVP_TOL``, and K6's rows besides to ``K6_PAIR_TOL`` of what the K2 +
+    K5 and K2 + K3 rows gave (``k6_pair_reference``'s contraction, K6's
+    rows coming after theirs).  max|err|/max|ref| of each goes into
+    ``errs``."""
+    import torch
+
+    pair = {}
+
+    def check(name, got, want):
+        if "BVP" not in name:
+            errs[name] = stage1_check(got, want, name)
+            return
+        errs[name] = bvp_check(got, want, name)
+        for two in ("K2 + K5", "K2 + K3"):
+            if name.endswith(f"({two})"):
+                pair[two] = got
+        if name.endswith("(K6)"):
+            ref = pair["K2 + K5"]
+            if "flux" in name:
+                ref = (pair["K2 + K3"][0],
+                       torch.cat([ref[0][:, -1], ref[1][:, -1]]))
+            e = max(rel_err(g, r) for g, r in zip(got, ref))
+            assert e <= K6_PAIR_TOL, f"{name}: K6 vs K2 + K3/K5 {e:.2e}"
+            errs[name + " vs the pair"] = e
+    return check
+
+
 def thermal_records(path, launches, pr, md, ang):
     """K1, K2 and K3 against their plain versions on a thermal path's own
     inputs, every column, to phase 2's and 3's bounds, each timed; the
     entries of the ``kernels`` line."""
+    from pyharp_tpu_torch.bench.roofline_run import kernel_flops
     from pyharp_tpu_torch.rt.disort import kernels as K
 
     sol = md["sol"]
@@ -979,6 +861,7 @@ def beam_records(path, launches, pr, md, ang, near=None,
     order."""
     import torch
 
+    from pyharp_tpu_torch.bench.roofline_run import kernel_flops
     from pyharp_tpu_torch.rt.disort import kernels as K
     from pyharp_tpu_torch.rt.disort.disort import FUSED_FLUX_MAX_N
 
@@ -1043,6 +926,11 @@ def main() -> None:
                          "this script runs only on a CUDA GPU")
     import amars_lw_torch
     import amars_sw_torch
+    from pyharp_tpu_torch.bench import roofline_run as R
+    from pyharp_tpu_torch.bench.problems import (
+        RAD_FLAGS, RAD_MU, RAD_PHI, RAD_SHAPE, RAD_TAU, bench_problem,
+        extra_problem, radiance_problem, stage1_inputs)
+    from pyharp_tpu_torch.bench.roofline_run import kernel_flops
     from pyharp_tpu_torch.rt.disort import kernels as K
     from pyharp_tpu_torch.rt.disort.disort import flux_epilogue
     from pyharp_tpu_torch.rt.disort.legendre import lepoly
@@ -1082,9 +970,10 @@ def main() -> None:
     msgs = []
     for nstr in NSTR_ALL:
         for L, ncol in PHASE3_SHAPES[0 if nstr in NSTR_MAIN else 1:]:
-            ds, prop, bc, temf, _ = bench_problem(2, ncol, L, nstr,
-                                                  torch.float32, dev, "cuda",
-                                                  seed=nstr * L)
+            p = bench_problem(2, ncol, L, nstr,
+                              torch.float32, dev, "cuda",
+                              seed=nstr * L)
+            ds, prop, bc, temf = p.disort, p.prop, p.bc, p.temf
             ang = ds._ang0
             pr = ds._prepare(prop, bc, temf)
             md = ds._solve_mode(pr)
@@ -1107,8 +996,9 @@ def main() -> None:
 
     # ---- phase 4: Disort.forward at the bench shape ------------------------
     nwave, ncol, nlyr, nstr = 8, 8192, 100, 8
-    ds, prop, bc, temf, w = bench_problem(nwave, ncol, nlyr, nstr,
-                                          torch.float32, dev, "cuda")
+    p = bench_problem(nwave, ncol, nlyr, nstr,
+                      torch.float32, dev, "cuda")
+    ds, prop, bc, temf, w = p.disort, p.prop, p.bc, p.temf, p.weights
 
     def step(disort):
         return torch.einsum("g,g...->...", w, disort.forward(prop, bc, temf))
@@ -1122,15 +1012,17 @@ def main() -> None:
     assert flux.shape == (nwave, ncol, nlyr + 1, 2)
     assert bool(torch.isfinite(flux).all())
 
-    ds64, prop64, bc64, temf64, _ = bench_problem(nwave, ncol, nlyr, nstr,
-                                                  torch.float64, dev, "torch")
+    p64 = bench_problem(nwave, ncol, nlyr, nstr,
+                        torch.float64, dev, "torch")
+    ds64, prop64, bc64, temf64 = p64.disort, p64.prop, p64.bc, p64.temf
     ref = ds64.forward(prop64, bc64, temf64)
     err4 = float((flux.double() - ref).abs().max() / ref.abs().max())
     assert err4 <= 1e-4, f"bench forward vs float64 plain: {err4:.2e}"
-    del ds64, prop64, bc64, temf64, ref
+    del p64, ds64, prop64, bc64, temf64, ref
 
-    ds_plain, *_ = bench_problem(nwave, ncol, nlyr, nstr, torch.float32, dev,
-                                 "torch")
+    p = bench_problem(nwave, ncol, nlyr, nstr, torch.float32, dev,
+                      "torch")
+    ds_plain = p.disort
     ms_kernel = cuda_ms(lambda: step(ds), 10)
     ms_plain = cuda_ms(lambda: step(ds_plain), 10)
     say("4", f"forward {nwave}x{ncol}x{nlyr} nstr {nstr}: launches {launches}; "
@@ -1148,7 +1040,7 @@ def main() -> None:
                                    launches, pr, md, ds._ang0)
     say("4", "per kernel at the bench shape, all columns: "
              + records_line(kernels_json))
-    del ds, ds_plain, prop, bc, temf, pr, md, flux
+    del p, ds, ds_plain, prop, bc, temf, pr, md, flux
 
     # ---- phase 5: amars_lw through the port ---------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1239,8 +1131,9 @@ def main() -> None:
         assert all(eq4m), f"K4 nstr {nstr} modes not bit-equal: {eq4m}"
         e5 = []
         for L5 in (100, 37) if nstr in NSTR_MAIN else (37,):
-            ds, prop, bc = extra_problem(2, 256, L5, nstr, 0.8, torch.float32,
-                                         dev, "cuda", seed=nstr * L5)
+            p = extra_problem(2, 256, L5, nstr, g=0.8, device=dev,
+                              kernel="cuda", seed=nstr * L5)
+            ds, prop, bc = p.disort, p.prop, p.bc
             md = ds._solve_mode(ds._prepare(prop, bc, None))
             s5 = md["sol"]
             e5.append(bvp_check(
@@ -1266,13 +1159,16 @@ def main() -> None:
                    dict(stage1_isotropic_beam=1, bvp_forward=1,
                         bvp_backward_flux=1)))):
         N = nstr // 2
-        ds, prop, bc = extra_problem(nwave, ncol, nlyr, nstr, g, torch.float32,
-                                     dev, "cuda")
-        ds64, prop64, bc64 = extra_problem(nwave, ncol, nlyr, nstr, g,
-                                           torch.float64, dev, "torch")
+        p = extra_problem(nwave, ncol, nlyr, nstr, g=g, device=dev,
+                          kernel="cuda")
+        ds, prop, bc = p.disort, p.prop, p.bc
+        p64 = extra_problem(nwave, ncol, nlyr, nstr, g=g,
+                            dtype=torch.float64, device=dev,
+                            kernel="torch")
+        ds64, prop64, bc64 = p64.disort, p64.prop, p64.bc
         launches, err, err_near_f, err_near, n_near, ms = solve_and_check(
             ds, ds64, (prop, bc), (prop64, bc64), want, label)
-        del ds64, prop64, bc64
+        del p64, ds64, prop64, bc64
         say(phase, f"{label} {nwave}x{ncol}x{nlyr} nstr {nstr}: launches "
                    f"{launches}; max|err|/max|flux| vs float64 plain: "
                    f"{err:.2e} on the {nwave * ncol - n_near} columns with "
@@ -1295,7 +1191,7 @@ def main() -> None:
             recs[0]["ptxas"] = regs.get(f"stage1_general<{N}>")
             # built with --fmad=false: a multiply-add issues as two
             # instructions, so the issue-rate floor is twice the op bound
-            recs[0]["no_fma_floor_ms"] = 2 * recs[0]["flops"] / PEAK_F32 * 1e3
+            recs[0]["no_fma_floor_ms"] = 2 * recs[0]["flops"] / R.PEAK["flops"] * 1e3
         bwd = (sol.gp, sol.gm, sol.expd, md["P"], md["g"])
         tops = (md["ptop_p"], md["ptop_m"], md["pb_p"], md["pb_m"])
         if nstr == 16:
@@ -1318,7 +1214,7 @@ def main() -> None:
                    + ("; K4 issue-rate floor without FMA "
                       f"{recs[0]['no_fma_floor_ms']:.3f} ms" if nstr == 16
                       else "") + f" [{card}]")
-        del ds, prop, bc, pr, md, sol, bwd, tops, recs
+        del p, ds, prop, bc, pr, md, sol, bwd, tops, recs
         torch.cuda.empty_cache()
 
     # ---- phase 9: amars_sw through the port ---------------------------------
@@ -1348,9 +1244,10 @@ def main() -> None:
     msgs = []
     for nstr in (4, 8, 16):
         for L, ncol in PHASE3_SHAPES + K6_EDGE_SHAPES:
-            ds, prop, bc, temf, _ = bench_problem(2, ncol, L, nstr,
-                                                  torch.float32, dev, "cuda",
-                                                  seed=3 * nstr + L)
+            p = bench_problem(2, ncol, L, nstr,
+                              torch.float32, dev, "cuda",
+                              seed=3 * nstr + L)
+            ds, prop, bc, temf = p.disort, p.prop, p.bc, p.temf
             pr = ds._prepare(prop, bc, temf)
             md = ds._solve_mode(pr)
             ang, ins = ds._ang0, bvp_inputs(pr, md)
@@ -1380,19 +1277,20 @@ def main() -> None:
         ("bench 8x8192x100 nstr 8", True,
          lambda: bench_problem(8, 8192, 100, 8, torch.float32, dev, "cuda")),
         ("aerosol_16str_beam 500x128x40 nstr 16", False,
-         lambda: extra_problem(500, 128, 40, 16, 0.8, torch.float32, dev,
-                               "cuda") + (None,)),
+         lambda: extra_problem(500, 128, 40, 16, g=0.8, device=dev,
+                               kernel="cuda")),
         ("sw_lbl_4str_beam 500x512x40 nstr 4", True,
-         lambda: extra_problem(500, 512, 40, 4, 0.0, torch.float32, dev,
-                               "cuda") + (None,)))
+         lambda: extra_problem(500, 512, 40, 4, device=dev,
+                               kernel="cuda")))
     for path, flux_only, make in k6_paths:
-        ds, prop, bc, temf = make()[:4]
+        p = make()
+        ds, prop, bc, temf = p.disort, p.prop, p.bc, p.temf
         pr = ds._prepare(prop, bc, temf)
         md = ds._solve_mode(pr)
         rec, line = k6_record(path, pr, md, ds._ang0, flux_only)
         say("10", line + f" [{card}]")
         kernels_json.append(rec)
-        del ds, prop, bc, temf, pr, md
+        del p, ds, prop, bc, temf, pr, md
         torch.cuda.empty_cache()
 
     # ---- phase 11: the YAML Radiation path ----------------------------------
@@ -1531,7 +1429,8 @@ def main() -> None:
     # ---- phase 12: radiances_8str_4mu_2phi_3tau at full width --------------
     nwave, ncol, nlyr, nstr = RAD_SHAPE
     N, nm = nstr // 2, nstr - 1
-    ds, prop, bc = radiance_problem(torch.float32, dev, "cuda")
+    p = radiance_problem(torch.float32, dev, "cuda")
+    ds, prop, bc = p.disort, p.prop, p.bc
     K.reset_launches()
     out = ds.intensities(prop, bc)
     torch.cuda.synchronize()
@@ -1540,14 +1439,15 @@ def main() -> None:
                     bvp_backward=2)
     assert out["uu"].shape == (nwave, ncol, len(RAD_TAU), len(RAD_PHI),
                                len(RAD_MU)), out["uu"].shape
-    ds64, prop64, bc64 = radiance_problem(torch.float64, dev, "torch")
+    p64 = radiance_problem(torch.float64, dev, "torch")
+    ds64, prop64, bc64 = p64.disort, p64.prop, p64.bc
     ref, margin, per_mode = radiance_reference(ds64, (prop64, bc64))
     with float32_resonance_floor():
         ref_f = radiance_reference(ds64, (prop64, bc64))[0]
     near = (margin < RESONANCE_MARGIN).reshape(nwave, ncol)
     n_near = int(near.sum())
     res12 = radiance_errors(out, ref, ref_f, near)
-    del ref, ref_f, ds64, prop64, bc64
+    del p64, ref, ref_f, ds64, prop64, bc64
     fwd = ds.forward(prop, bc)
     fvf = float(((out["flux"] - fwd).abs()
                  - 2e-4 * fwd.abs()).max() / fwd.abs().max())
@@ -1665,7 +1565,7 @@ def main() -> None:
         rec, line = k6_record(f"{path}, {what}", pr, md, ang0, False, **kw)
         say("12", line + f" [{card}]")
         kernels_json.append(rec)
-    del ds, prop, bc, pr, md, modes, sol, fgp, fgm, fexpd, dblk, alb, tp0
+    del p, ds, prop, bc, pr, md, modes, sol, fgp, fgm, fexpd, dblk, alb, tp0
     torch.cuda.empty_cache()
 
     # ---- phase 13: the static route under kernel="auto" ---------------------
@@ -1673,10 +1573,12 @@ def main() -> None:
     for nstr, dtype in ((6, torch.float32), (12, torch.float32),
                         (8, torch.float64)):
         shape = (4, 256, 20, nstr)
-        ds, prop, bc = radiance_problem(dtype, dev, "auto", shape=shape,
-                                        seed=nstr)
-        ds64, prop64, bc64 = radiance_problem(torch.float64, dev, "torch",
-                                              shape=shape, seed=nstr)
+        p = radiance_problem(dtype, dev, "auto", shape=shape,
+                             seed=nstr)
+        ds, prop, bc = p.disort, p.prop, p.bc
+        p64 = radiance_problem(torch.float64, dev, "torch",
+                               shape=shape, seed=nstr)
+        ds64, prop64, bc64 = p64.disort, p64.prop, p64.bc
         route = ds._kernels(prop.device, prop.dtype).route
         f32 = dtype == torch.float32
         assert route == ("cuda" if f32 else "torch"), (nstr, dtype, route)
@@ -1732,7 +1634,7 @@ def main() -> None:
                             f"max|ref| over 3e-4 rtol, reported)"
                             for r in k3))
             del pr, recs
-        del ds, prop, bc, ds64, prop64, bc64, ref, ref_f, out, flux
+        del p, p64, ds, prop, bc, ds64, prop64, bc64, ref, ref_f, out, flux
     say("13", "Disort.forward and .intensities on CUDA tensors, kernel="
               "'auto', 4x256x20 radiance problems: " + "; ".join(msgs)
               + f" [{card}]")
@@ -1802,8 +1704,10 @@ def main() -> None:
     nwave, ncol, nlyr, nstr = SHARDED_SHAPE
 
     def beer_lambert(dtype):
-        ds, prop, bc, temf, _ = scaling.bench_problem(
-            nwave, ncol, nlyr, nstr, dtype, dev, "torch")
+        p = bench_problem(
+            nwave, ncol, nlyr, nstr, dtype, dev, "torch",
+            distinct_bins=True)
+        ds, prop, bc, temf = p.disort, p.prop, p.bc, p.temf
         bl = BeerLambert(BeerLambertOptions(
             nstr=nstr, wave_lower=ds.options.wave_lower,
             wave_upper=ds.options.wave_upper))
@@ -1856,8 +1760,10 @@ def main() -> None:
         launches = K.launch_counts()
         expect_launches(launches, stage1_isotropic=1, bvp_forward=1,
                         bvp_backward_flux=1)
-        ds, prop, bc, temf, w = scaling.bench_problem(
-            nwave, ncol, nlyr, nstr, torch.float32, dev, "cuda")
+        p = bench_problem(
+            nwave, ncol, nlyr, nstr, torch.float32, dev, "cuda",
+            distinct_bins=True)
+        ds, prop, bc, temf, w = p.disort, p.prop, p.bc, p.temf, p.weights
 
         def unsharded():
             return torch.einsum("g,g...->...", w, ds.forward(prop, bc, temf))
@@ -1865,12 +1771,15 @@ def main() -> None:
         ref = unsharded()
         assert got.shape == (ncol, nlyr + 1, 2), got.shape
         assert torch.equal(got, ref), float((got - ref).abs().max())
-        ds64, prop64, bc64, temf64, w64 = scaling.bench_problem(
-            nwave, ncol, nlyr, nstr, torch.float64, dev, "torch")
+        p64 = bench_problem(
+            nwave, ncol, nlyr, nstr, torch.float64, dev, "torch",
+            distinct_bins=True)
+        ds64, prop64, bc64, temf64 = p64.disort, *p64.args
+        w64 = p64.weights
         e16 = rel_err(got.double(), torch.einsum(
             "g,g...->...", w64, ds64.forward(prop64, bc64, temf64)))
         assert bool(torch.isfinite(got).all()) and e16 <= 1e-4, e16
-        del ds64, prop64, bc64, temf64, w64
+        del p64, ds64, prop64, bc64, temf64, w64
         ms16 = [cuda_ms(unsharded, 10), cuda_ms(lambda: step(*sargs), 10),
                 cuda_ms(lambda: step(*sargs), 10), cuda_ms(unsharded, 10)]
         red = got.clone()
@@ -1892,7 +1801,7 @@ def main() -> None:
                   + records_line(recs))
         kernels_json += recs
         ref17 = ref.double().cpu().numpy()
-        del step, sargs, got, ref, red, ds, prop, bc, temf, pr, md
+        del p, step, sargs, got, ref, red, ds, prop, bc, temf, pr, md
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -1926,6 +1835,106 @@ def main() -> None:
               + "; ".join(msgs) + f" [{card}]")
     say("17", "partition_overhead_run "
               + json.dumps(recs17[0]["partition"]) + f" [{card}]")
+
+    # ---- phase 18: the measurement drivers of pyharp_tpu_torch.bench -------
+    from pyharp_tpu_torch.bench import columns, extra, rmse_run, stages
+
+    t18 = time.perf_counter()
+
+    def driver(fn, argv=(), **kw):
+        """``fn(argv, **kw)`` with what it prints relayed as phase 18's
+        lines."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(list(argv), **kw)
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                say("18", line)
+        return out
+
+    # each roofline row and each stage of stages (a) is also run through the
+    # kernels' plain versions on the same inputs and held to them
+    errs18 = {}
+    rows = driver(R.main, check=plain_check(errs18))
+    assert len(rows) == 6 and all(r["ms"] > 0 for r in rows), rows
+    # raises unless within 10% and bit-equal
+    driver(stages.main, check=plain_check(errs18))
+    assert len(errs18) == 10, errs18
+    say("18", "the roofline's rows and stages (a) against the plain versions "
+              "on the same inputs, max|err|/max|ref|: "
+              + "; ".join(f"{k} {e:.2e}" for k, e in errs18.items())
+              + f" ({STAGE1_TOL} for stage 1, {BVP_TOL} for a BVP, K6 "
+              f"within {K6_PAIR_TOL} of the pair)")
+    rec = driver(columns.main)
+    assert rec["value"] > 0, rec
+    out = driver(extra.main)
+    want18 = {
+        "sw_lbl_4str_beam": dict(stage1_isotropic_beam=1, bvp_forward=1,
+                                 bvp_backward_flux=1),
+        "aerosol_16str_beam": dict(stage1_general=1, bvp_forward=1,
+                                   bvp_backward=1),
+        "thermal_lw_8str_100lyr_bigbatch": dict(stage1_isotropic=1,
+                                                bvp_forward=1,
+                                                bvp_backward_flux=1),
+        "radiances_8str_4mu_2phi_3tau": dict(stage1_general=8, bvp_forward=2,
+                                             bvp_backward=2)}
+    for r in out["results"]:
+        assert r["launches"] == want18[r["config"]], (r["config"],
+                                                      r["launches"])
+    assert [r["config"] for r in out["results"]] == list(want18)
+
+    # the big batch, at a B no other phase runs: forward against the float64
+    # plain path on every column, as phase 4 holds it, and K1-K3 against
+    # their plain versions on its own inputs
+    big = "thermal_lw_8str_100lyr_bigbatch"
+    nwave, ncol, nlyr, nstr, kw = extra.CONFIGS[big]
+    p = extra_problem(nwave, ncol, nlyr, nstr, device=dev, kernel="cuda", **kw)
+    flux = p.disort.forward(*p.args)
+    p64 = extra_problem(nwave, ncol, nlyr, nstr, dtype=torch.float64,
+                        device=dev, kernel="torch", **kw)
+    err_big = rel_err(flux.double(), p64.disort.forward(*p64.args))
+    del p64
+    torch.cuda.empty_cache()
+    assert err_big <= 1e-4, f"{big} forward vs float64 plain: {err_big:.2e}"
+    pr = p.disort._prepare(*p.args)
+    md = p.disort._solve_mode(pr)
+    path = f"{big} {nwave}x{ncol}x{nlyr} nstr {nstr}"
+    launches = next(r["launches"] for r in out["results"]
+                    if r["config"] == big)
+    recs = thermal_records(path, launches, pr, md, p.disort._ang0)
+    kernels_json += recs
+    say("18", f"{path}: forward max|err|/max|flux| vs float64 plain on all "
+              f"columns {err_big:.2e} (<= 1e-4); per kernel, all columns: "
+              + records_line(recs) + f" [{card}]")
+    del p, flux, pr, md, recs
+    torch.cuda.empty_cache()
+
+    # the accuracy matrix in float32 through the kernels
+    photons = rmse_run.MC_PHOTONS
+    K.reset_launches()
+    mc = rmse_run.mc_case_errors(photons, torch.float32, dev)
+    bad = {k: e for k, e in mc.items() if not max(e) < rmse_run.MC_TOL}
+    assert not bad, f"float32 vs MC at {photons:.0e} photons: {bad}"
+    anchors = rmse_run.anchor(torch.float32, dev)
+    bad = [a for a in anchors if not a[4] < rmse_run.ANCHOR_TOL]
+    assert not bad, f"float32 H-function anchor: {bad}"
+    matrix = rmse_run.matrix(1_000_000, torch.float32, dev)
+    l18 = K.launch_counts()
+    missing = [k for k in KERNEL_TABLE if k != "bvp_fused" and not l18[k]]
+    assert not missing, f"the rmse runs launched no {missing}"
+    say("18", f"rmse_run float32 through the kernels (launches {l18}): "
+              f"tests/test_oracle_mc.py's cases at {photons:.0e} photons, "
+              "max|err|/scale (up, down): "
+              + "; ".join(f"{k} {u:.2e}, {d:.2e}" for k, (u, d) in mc.items())
+              + f" (< {rmse_run.MC_TOL}); H-function anchor rel err "
+              + ", ".join(f"w0 {w} mu0 {m}: {r:.2e}"
+                          for w, m, _, _, r in anchors)
+              + f" (< {rmse_run.ANCHOR_TOL}); the matrix at 1e6 photons:")
+    for line in rmse_run.report(matrix, anchors, 1_000_000, torch.float32,
+                                dev).splitlines():
+        if line.strip():
+            say("18", line)
+    say("18", f"phase 18 took {time.perf_counter() - t18:.1f} s [{card}]")
 
     print(card)
     print(json.dumps({"kernels": kernels_json}))

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import tempfile
 import time
 from dataclasses import dataclass
@@ -39,6 +40,21 @@ def _peaks() -> dict:
     raise ValueError(f"no published peak for {kind!r}; known: {list(PEAKS)}")
 
 
+def card_line(device: torch.device | str = "cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (its first card), to
+    stand beside every time; ``"cpu"`` for a CPU device."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.splitlines()[0].strip()
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"{torch.cuda.get_device_name(0)}, power limit not read"
+
+
 @contextlib.contextmanager
 def trace(logdir: str | None = None):
     """``with trace(dir) as prof: step(...)``: a ``torch.profiler`` trace of
@@ -53,6 +69,12 @@ def trace(logdir: str | None = None):
         yield prof
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def timed_calls(device: torch.device | str) -> int:
+    """Timed calls per measurement of the drivers: 10 on the card, 2 on the
+    CPU, as ``bench.py`` and ``bench_extra.py`` take them."""
+    return 10 if torch.device(device).type == "cuda" else 2
 
 
 def _cuda_out(out) -> bool:

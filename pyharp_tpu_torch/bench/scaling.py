@@ -17,48 +17,15 @@ import argparse
 import json
 import os
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..core.device import DEFAULT_DEVICE
 from ..parallel.dryrun import default_backend
 from ..parallel.mesh import init_distributed, make_radiation_mesh, rank_device
 from ..parallel.sharded import sharded_band_flux
-from ..rt.disort.disort import Disort, DisortOptions
+from .problems import bench_problem
 from .profile import measure
-
-
-def bench_problem(nwave: int, ncol: int, nlyr: int = 100, nstr: int = 8,
-                  dtype: torch.dtype = torch.float32,
-                  device: torch.device | str = DEFAULT_DEVICE,
-                  kernel: str = "auto", seed: int = 0):
-    """``(disort, prop, bc, temf, weights)`` of the bench problem, the draws
-    of ``pyharp_tpu.bench.scaling.build_sharded_step``: tau in [0.001, 0.8],
-    ssa in [0, 0.6], albedo 0.1, a 300 K surface, level temperatures
-    200-300 K, equal weights.  Two departures: the bins have distinct
-    edges tiling 1-500 cm^-1 (the JAX problem gives every bin (1, 500),
-    which hides a rank integrating Planck over another rank's bins), and
-    ``bc`` carries no ``fbeam`` (the JAX problem's is zero; a ``bc`` with
-    ``fbeam`` runs K1's beam variant)."""
-    device = resolve_device(device)
-    edges = np.linspace(1.0, 500.0, nwave + 1)
-    disort = Disort(DisortOptions(
-        flags="lamber,quiet,onlyfl,planck", nwave=nwave, ncol=ncol,
-        nlyr=nlyr, nstr=nstr, nmom=nstr, wave_lower=tuple(edges[:-1]),
-        wave_upper=tuple(edges[1:]), kernel=kernel))
-    rng = np.random.default_rng(seed)
-    prop = np.zeros((nwave, ncol, nlyr, 2), np.float32)
-    prop[..., 0] = rng.uniform(0.001, 0.8, (nwave, ncol, nlyr))
-    prop[..., 1] = rng.uniform(0.0, 0.6, (nwave, ncol, nlyr))
-    kw = dict(dtype=dtype, device=device)
-    bc = dict(umu0=torch.full((nwave, ncol), 0.5, **kw),
-              albedo=torch.full((nwave, ncol), 0.1, **kw),
-              btemp=torch.full((nwave, ncol), 300.0, **kw))
-    temf = np.linspace(200.0, 300.0, nlyr + 1, dtype=np.float32)
-    temf = torch.tensor(np.broadcast_to(temf, (ncol, nlyr + 1)).copy(), **kw)
-    weights = torch.full((nwave,), 1.0 / nwave, **kw)
-    return disort, torch.tensor(prop, **kw), bc, temf, weights
 
 
 def build_sharded_step(mesh, nwave: int, ncol: int, nlyr: int = 100,
@@ -66,15 +33,15 @@ def build_sharded_step(mesh, nwave: int, ncol: int, nlyr: int = 100,
                        device: torch.device | str = DEFAULT_DEVICE,
                        kernel: str = "auto"):
     """``(step, args)``: ``step(*args)`` is the sharded band flux of
-    :func:`bench_problem` on ``mesh``, this rank's ``(ncol / n_col, nlyr+1,
-    2)``."""
-    disort, prop, bc, temf, weights = bench_problem(
-        nwave, ncol, nlyr, nstr, dtype, device, kernel)
+    ``problems.bench_problem`` with distinct bins on ``mesh``, this rank's
+    ``(ncol / n_col, nlyr+1, 2)``."""
+    p = bench_problem(nwave, ncol, nlyr, nstr, dtype, device, kernel,
+                      distinct_bins=True)
 
     def step(prop, bc, temf, weights):
-        return sharded_band_flux(disort, mesh, prop, bc, weights, temf)
+        return sharded_band_flux(p.disort, mesh, prop, bc, weights, temf)
 
-    return step, (prop, bc, temf, weights)
+    return step, (*p.args, p.weights)
 
 
 def _world() -> tuple[int, int]:

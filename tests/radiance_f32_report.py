@@ -4,9 +4,10 @@ package, column by column (not a test; CPU, ~2 min).
 
     python3 tests/radiance_f32_report.py [--first 1024] [--cols 579,2584]
 
-It draws ``chip_smoke.py`` phase 12's problem (``radiance_problem``:
-radiances_8str_4mu_2phi_3tau, 32 x 512 x 40, nstr 8, from its seeded
-``torch.Generator``) and solves only the chosen columns (flattened wave x
+It draws ``chip_smoke.py`` phase 12's problem
+(``pyharp_tpu_torch.bench.problems.radiance_problem``:
+radiances_8str_4mu_2phi_3tau, 32 x 512 x 40, nstr 8, drawn with numpy as
+``bench_extra.py`` draws it) and solves only the chosen columns (flattened wave x
 column indices: the first ``--first`` ones and ``--cols``): the port's
 float64 plain path as the reference, the port's float32 plain path, and
 the JAX package's float32 ``kernel="xla"`` path (x64 off, in a
@@ -61,15 +62,16 @@ def main() -> None:
 
     import chip_smoke as cs
     from pyharp_tpu_torch import Disort, DisortOptions
+    from pyharp_tpu_torch.bench import problems as P
 
     cols = list(range(args.first)) + [int(c) for c in args.cols.split(",")
                                       if c]
-    _, prop, _ = cs.radiance_problem(torch.float32, "cpu", "torch")
-    nlyr, nstr = prop.shape[2], cs.RAD_SHAPE[3]
+    prop = P.radiance_problem(torch.float32, "cpu", "torch").prop
+    nlyr, nstr = prop.shape[2], P.RAD_SHAPE[3]
     sel = prop.reshape(-1, *prop.shape[2:])[cols][None]   # (1, n, L, nprop)
     n = len(cols)
-    opts = dict(flags=cs.RAD_FLAGS, nlyr=nlyr, nstr=nstr, nmom=nstr,
-                user_mu=cs.RAD_MU, user_phi=cs.RAD_PHI, user_tau=cs.RAD_TAU)
+    opts = dict(flags=P.RAD_FLAGS, nlyr=nlyr, nstr=nstr, nmom=nstr,
+                user_mu=P.RAD_MU, user_phi=P.RAD_PHI, user_tau=P.RAD_TAU)
 
     def port(dtype):
         ds = Disort(DisortOptions(kernel="torch", nwave=1, ncol=n, **opts))
@@ -86,7 +88,7 @@ def main() -> None:
     beam = torch.minimum(cs.resonance_margin(md),
                          cs.modes_margin(modes).amin(dim=0)).numpy()
     lam = torch.cat([md["sol"].lam[None], modes["lam"]])   # (nm, N, L, B)
-    mus = torch.tensor([abs(m) for m in cs.RAD_MU], dtype=torch.float64)
+    mus = torch.tensor([abs(m) for m in P.RAD_MU], dtype=torch.float64)
     user = (1.0 - lam[None] * mus[:, None, None, None, None]).abs()
     user = user.amin(dim=(0, 1, 2, 3)).numpy()
 

@@ -56,16 +56,19 @@ def main() -> None:
     import numpy as np
     import torch
 
-    from chip_smoke import (RESONANCE_MARGIN, extra_problem,
+    from chip_smoke import (RESONANCE_MARGIN,
                             float32_resonance_floor, resonance_margin)
     from pyharp_tpu.rt.disort.disort import Disort as JDisort
     from pyharp_tpu.rt.disort.disort import DisortOptions as JDisortOptions
+    from pyharp_tpu_torch.bench.problems import extra_problem
     from pyharp_tpu_torch.rt.disort import kernels as K
     from pyharp_tpu_torch.rt.disort import solver as S
 
     def port(cfg, dtype):
-        ds, prop, bc = extra_problem(*cfg, dtype, "cpu", "torch",
-                                     first=cfg_first[cfg])
+        nwave, ncol, nlyr, nstr, g = cfg
+        p = extra_problem(nwave, ncol, nlyr, nstr, g=g, dtype=dtype,
+                          device="cpu", kernel="torch", first=cfg_first[cfg])
+        ds, prop, bc = p.disort, p.prop, p.bc
         pr = ds._prepare(prop, bc, None)
         md = ds._solve_mode(pr)
         return ds._fluxes_from_mode0(pr, md)[0].double().numpy(), md, ds, prop, bc

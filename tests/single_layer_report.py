@@ -6,8 +6,9 @@ CPU.
     python3 tests/single_layer_report.py
 
 Builds the inputs of ``chip_smoke.py`` phase 10's L = 1 case on the CPU
-(``chip_smoke.bench_problem``: 2 x 509 columns, one layer from 200 to
-300 K, dtau 0.001-0.8, its seed) at nstr 4, 8 and 16, in float32, and
+(``pyharp_tpu_torch.bench.problems.bench_problem``: 2 x 509 columns, one
+layer from 200 to 300 K, dtau 0.001-0.8, its seed) at nstr 4, 8 and 16,
+in float32, and
 solves the BVP three ways on those same float32 inputs:
 
 * the port's ``bvp_fused_plain`` in float64 (the inputs widened): the
@@ -51,6 +52,7 @@ def main() -> None:
     import torch
 
     import chip_smoke as cs
+    from pyharp_tpu_torch.bench.problems import bench_problem
     from pyharp_tpu.rt.disort import solver as JS
     from pyharp_tpu_torch.rt.disort import kernels as K
 
@@ -67,8 +69,9 @@ def main() -> None:
     out = {}
     for nstr in (4, 8, 16):
         N = nstr // 2
-        ds, prop, bc, temf, _ = cs.bench_problem(
-            2, NCOL, L, nstr, torch.float32, "cpu", "torch", seed=3 * nstr + L)
+        p = bench_problem(2, NCOL, L, nstr, torch.float32, "cpu", "torch",
+                          seed=3 * nstr + L)
+        ds, prop, bc, temf = p.disort, p.prop, p.bc, p.temf
         pr = ds._prepare(prop, bc, temf)
         md = ds._solve_mode(pr)
         ins = cs.bvp_inputs(pr, md)

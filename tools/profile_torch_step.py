@@ -5,15 +5,17 @@
     python tools/profile_torch_step.py --yaml lbl [--ncol 16] [--fuse]
     python tools/profile_torch_step.py --radiances [--ncol 512]
 
-By default the step is ``Disort.forward`` on the ``bench.py`` problem (8
-g-points x ncol columns x 100 layers, ``lamber,onlyfl,planck``) as
-``chip_smoke.py`` builds it; with ``--yaml ck|lbl`` it is
-``Radiation.forward`` of ``examples/amars_yaml_torch.py`` (amarsw-lbl at
-0.1 cm^-1: 19,995 bins x ncol columns x 40 layers), sequential or with
-``--fuse``; with ``--radiances`` it is ``Disort.intensities`` on
-``chip_smoke.radiance_problem`` (``bench_extra.py``'s radiance
-configuration: 32 waves x ncol columns x 40 layers, nstr 8).  Runs 3 steps under ``torch.profiler`` and prints device time
-by kernel plus the device's busy share of the steps' wall time.
+By default the step is ``Disort.forward`` and the g-point sum on the
+``bench.py`` problem (8 g-points x ncol columns x 100 layers,
+``lamber,onlyfl,planck``; ``pyharp_tpu_torch.bench.problems.bench_problem``);
+with ``--yaml ck|lbl`` it is ``Radiation.forward`` of
+``examples/amars_yaml_torch.py`` (amarsw-lbl at 0.1 cm^-1: 19,995 bins x
+ncol columns x 40 layers), sequential or with ``--fuse``; with
+``--radiances`` it is ``Disort.intensities`` on
+``pyharp_tpu_torch.bench.problems.radiance_problem`` (``bench_extra.py``'s
+radiance configuration: 32 waves x ncol columns x 40 layers, nstr 8).
+Runs 3 steps under ``torch.profiler`` and prints device time by kernel
+plus the device's busy share of the steps' wall time.
 ``--trace`` writes a Chrome trace.
 """
 
@@ -57,23 +59,15 @@ def main() -> None:
         def step():
             return rad.forward(*inputs, fuse_bands=args.fuse)
     elif args.radiances:
-        from chip_smoke import RAD_SHAPE, radiance_problem
+        from pyharp_tpu_torch.bench.problems import RAD_SHAPE, radiance_problem
 
         shape = (RAD_SHAPE[0], args.ncol or RAD_SHAPE[1]) + RAD_SHAPE[2:]
-        ds, prop, bc = radiance_problem(torch.float32, dev, "cuda",
-                                        shape=shape)
-
-        def step():
-            return ds.intensities(prop, bc)["uu"]
+        step = radiance_problem(torch.float32, dev, "cuda", shape=shape).run
     else:
-        from chip_smoke import bench_problem
+        from pyharp_tpu_torch.bench.problems import bench_problem
 
-        ds, prop, bc, temf, w = bench_problem(8, args.ncol or 8192, 100,
-                                              args.nstr, torch.float32, dev,
-                                              "cuda")
-
-        def step():
-            return torch.einsum("g,g...->...", w, ds.forward(prop, bc, temf))
+        step = bench_problem(8, args.ncol or 8192, 100, args.nstr,
+                             torch.float32, dev, "cuda").run
 
     step()
     torch.cuda.synchronize()
