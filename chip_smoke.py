@@ -8,7 +8,7 @@ The paths run through the hand-written CUDA kernels of
 ``Disort.forward``: the isotropic thermal problem of ``bench.py`` (8
 g-points x 8192 columns x 100 layers, 8 streams) and amars_lw (kernels K1,
 K2, K3); the 16-stream aerosol problem with a beam of ``bench_extra.py``
-(500 x 128 x 40, K4, K2, K5); its 4-stream line-by-line beam problem (500 x
+(500 x 128 x 40, K4, K2, K5), and the same at 32 streams; its 4-stream line-by-line beam problem (500 x
 512 x 40, K1's beam variant, K2, K3); amars_sw (K1 beam, K2, K3); the YAML
 ``Radiation`` layer.  The radiances of ``Disort.intensities``: every
 azimuthal mode of ``bench_extra.py``'s radiance problem (32 x 512 x 40,
@@ -19,11 +19,12 @@ or more:
 0. device: needs CUDA (raises otherwise); prints the card, its power limit,
    the CUDA, nvcc and PyYAML versions;
 1. builds the kernels from the checkout's sources, prints the build time
-   and each kernel's registers and spills (K1-K5 at N = 1..8, every nstr
-   up to 16), K2 as its two bodies (one thread per column for N != 8,
-   ``bvp_forward_team`` for N = 8) and K6 as its instantiations per mode
-   (``bvp_fused_ab`` / ``_flux``, one thread per column for N <= 4;
-   ``bvp_fused_team`` for N = 8);
+   and each kernel's registers, stack and spills (K1-K5 at N = 1..8, every
+   nstr up to 16; K1, K4 and K2 at N = 9..16 as one body each,
+   ``<kernel>_wide<9..16>``, K5 at each N = 9..16), K2 as its bodies (one
+   thread per column for N < 8, ``bvp_forward_team`` for N = 8) and K6 as
+   its instantiations per mode (``bvp_fused_ab`` / ``_flux``, one thread
+   per column for N <= 4; ``bvp_fused_team`` for N = 8);
 2. K1 against its plain PyTorch version, float32 on the card, nstr
    4/6/8/10/12/14/16 and the bench shape, with ssa forced to 0 and 0.999999
    in some entries: max|err| <= 3e-5 max|ref| per output;
@@ -159,7 +160,27 @@ or more:
     float32 through K1 (thermal and beam), K4, K2, K3 and K5:
     ``tests/test_oracle_mc.py``'s three Monte Carlo cases at 4e6 photons
     within 5e-3, the H-function anchor within 2e-3, and the whole matrix
-    at 1e6 photons.
+    at 1e6 photons;
+19. 18 to 32 streams: ``kernels.route`` sends float32 CUDA tensors at
+    every nstr 2..32 to the kernels, and nstr 34 raises before any launch;
+    at every nstr 18..32, K1 and its beam variant (L 37 x B 4096, ssa 0
+    and 0.999999 entries) and K4 (thermal x beam at m = 0, and m = 1)
+    bit-equal to their plain versions (asserted), K4's float32 distance
+    from float64 printed with the modes matched by eigenvalue, K2 and K5
+    on 1018 columns x 8 layers to phase 3's bound; then through the wide
+    bodies, each path's fluxes against float64 as phase 7 holds them and
+    each kernel against its plain version on the path's inputs, every
+    column, timed (the plain versions once: at N = 16 they take seconds a
+    call): the isotropic thermal solve at nstr 32 (8 x 2048 x 20; K1, K2,
+    K5; beside it the fixed secular schedule of N <= 8 in float32, NaN
+    there), the isotropic beam (500 x 64 x 20; K1 beam), the aerosol
+    configuration at nstr 22 (32 x 128 x 20, HG g = 0.8; N = 11, where 2N
+    does not divide a warp) and at nstr 32 in full width (500 x 128 x 40:
+    K4, K2 and K5 once each; float64 on every 10th wave; K4 without its
+    Jacobi sweeps timed beside), and ``Disort.intensities`` at nstr 32
+    (32 x 64 x 40: K4 32 times, held bit-equal at every mode m = 0..31,
+    K2 and K5 twice, held on the folded modes; float64 with float32's
+    resonance floor on every 4th wave).
 
 The problems, the roofline counts and the card's peaks come from
 ``pyharp_tpu_torch.bench`` (``problems``, ``roofline_run``, ``profile``).
@@ -197,6 +218,13 @@ KERNEL_TABLE = {
     "bvp_backward": (CSRC + "bvp_backward.cu", TPU + "846"),
     "bvp_fused": (CSRC + "bvp_fused.cu", TPU + "964"),
 }
+# the sources of the bodies at N = 9..16 (kernels.NARROW_MAX_N < N)
+WIDE_SOURCES = {
+    "stage1_isotropic": CSRC + "stage1_isotropic_wide.cu",
+    "stage1_isotropic_beam": CSRC + "stage1_isotropic_wide.cu",
+    "stage1_general": CSRC + "stage1_general_wide.cu",
+    "bvp_forward": CSRC + "bvp_forward_wide.cu",
+}
 AMARS_SW_TOA = 408.17
 
 
@@ -231,7 +259,8 @@ def rel_err(got, ref) -> float:
 
 STAGE1_TOL = "max|err| <= 3e-5 max|ref| per output"
 # The stream counts of the repo's configurations, and with them every other
-# nstr up to 16, each a kernel instantiation N = nstr/2 (kernels.SUPPORTED_N)
+# nstr up to 16, each a kernel instantiation N = nstr/2 <= 8 (phase 19 runs
+# the bodies of N = 9..16)
 NSTR_MAIN = (4, 8, 16)
 NSTR_ALL = (4, 6, 8, 10, 12, 14, 16)
 BVP_TOL = "|err| <= 3e-5 max|ref| + 3e-4 |ref|"
@@ -286,7 +315,8 @@ def bvp_check(got, ref, what: str) -> float:
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
-    """'kernel<N>' -> 'R regs, S B spill st, L B spill ld' from ptxas -v."""
+    """'kernel<N>' -> 'R regs, F B stack, S B spill st, L B spill ld' from
+    ptxas -v; the bodies of N = 9..16 as 'kernel<9..16>'."""
     out, cur, regs, spills = {}, None, {}, {}
     for line in log.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?$",
@@ -297,6 +327,9 @@ def ptxas_summary(log: str) -> dict[str, str]:
                           r"bvp_backward_flux|bvp_backward|bvp_fused_team|"
                           r"bvp_fused)_kernelILi(\d+)E(L[bi]([01])E)?",
                           m.group(1))
+            w = re.search(r"(stage1_isotropic|stage1_general|bvp_forward)"
+                          r"_wide_kernel(ILb([01])E)?", m.group(1))
+            b = re.search(r"bvp_backward_wide_kernelILi(\d+)E", m.group(1))
             cur = None
             if k:
                 # the second template argument: K1's beam flag, K6's mode,
@@ -307,18 +340,24 @@ def ptxas_summary(log: str) -> dict[str, str]:
                         "bvp_fused_team": ("_ab", "_flux")}.get(k.group(1))
                 name = k.group(1) + (flag[int(k.group(4))] if flag else "")
                 cur = f"{name}<{k.group(2)}>"
+            elif w:
+                beam = "_beam" if w.group(3) == "1" else ""
+                cur = f"{w.group(1)}_wide{beam}<9..16>"
+            elif b:
+                cur = f"bvp_backward<{b.group(1)}>"
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
             spills[cur] = m.groups()
         m = re.search(r"Used (\d+) registers", line)
         if m:
             regs[cur] = m.group(1)
     for k in sorted(regs):
-        st, ld = spills.get(k, ("?", "?"))
-        out[k] = f"{regs[k]} regs, {st} B spill st, {ld} B spill ld"
+        fr, st, ld = spills.get(k, ("?", "?", "?"))
+        out[k] = f"{regs[k]} regs, {fr} B stack, {st} B spill st, {ld} B spill ld"
     return out
 
 
@@ -331,7 +370,7 @@ def near_err(got, ref, near) -> float:
 
 
 def kernel_record(name, path, launches, fn, plain, args, kw, check, tol,
-                  flops, near=None, reads=None):
+                  flops, near=None, reads=None, once=False):
     """One kernel against its plain version on ``args``, timed, with its
     bound; the entry of the ``kernels`` JSON line.  ``reads``, the tensors
     the function reads, where not all of ``args`` and ``kw``.  ``near``, a
@@ -339,10 +378,27 @@ def kernel_record(name, path, launches, fn, plain, args, kw, check, tol,
     ``RESONANCE_MARGIN`` of a beam resonance: ``check`` holds the other
     columns, the near ones are held to ``NEAR_RESONANCE_TOL`` of max|ref|
     and their count and reading go into the entry.  The bound is
-    ``bench.roofline_run``'s from the bytes of ``reads`` and the outputs."""
-    from pyharp_tpu_torch.bench import roofline_run as R
+    ``bench.roofline_run``'s from the bytes of ``reads`` and the outputs.
+    N, read from the first ``(N, N, L, B)`` tensor of the inputs or else
+    the outputs, picks the source of the body that N runs.  The kernel is
+    timed over 20 calls and the plain version over 3; with ``once`` (the
+    plain versions at N > 8 take seconds a call) the kernel over 3 calls
+    and the plain version by the one call that gives the reference."""
+    import torch
 
-    got, want = fn(*args, **kw), plain(*args, **kw)
+    from pyharp_tpu_torch.bench import roofline_run as R
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(*args, **kw)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = (start.elapsed_time(stop) if once else
+                cuda_ms(lambda: plain(*args, **kw), 3))
     what = f"{name} on the {path} inputs"
     extra = {}
     if near is not None and bool(near.any()):
@@ -362,11 +418,15 @@ def kernel_record(name, path, launches, fn, plain, args, kw, check, tol,
     nbytes = R.tensor_bytes(reads, got)
     bound_ms, bound_by = R.bound(nbytes, flops)
     src, tpu = KERNEL_TABLE[name]
+    N = next(t for t in (*args, *got) if isinstance(t, torch.Tensor)
+             and t.dim() == 4).shape[1]
+    if N > K.NARROW_MAX_N:
+        src = WIDE_SOURCES.get(name, src)
     rec = dict(
         name=name, route="cuda", source=src, replaces=tpu, launches=launches,
         max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got, want)),
-        ms=cuda_ms(lambda: fn(*args, **kw), 20),
-        plain_ms=cuda_ms(lambda: plain(*args, **kw), 3),
+        ms=cuda_ms(lambda: fn(*args, **kw), 3 if once else 20),
+        plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, path=path, max_rel_err=rel, tolerance=tol,
         bytes=nbytes, flops=flops, **extra)
     del got, want
@@ -473,13 +533,16 @@ def float32_resonance_floor():
         yield
 
 
-def solve_and_check(ds, ds64, args, args64, want_launches, label):
-    """One counted forward of a path, its float64 checks on every column and
-    10 timed steps.  Columns with no layer within ``RESONANCE_MARGIN`` of a
-    beam resonance are held to 1e-4 max|flux| of the float64 plain path,
-    the others to ``NEAR_RESONANCE_TOL`` of it run with float32's resonance
-    floor.  Returns (launches, err away, err near against float32's floor,
-    err near against the float64 answer, number of near columns, ms)."""
+def solve_and_check(ds, ds64, args, args64, want_launches, label, sel=None,
+                    steps=10):
+    """One counted forward of a path, its float64 checks on every column (on
+    the waves ``sel`` where given: ``args64`` holds those alone) and
+    ``steps`` timed steps.  Columns with no layer within ``RESONANCE_MARGIN``
+    of a beam resonance are held to 1e-4 max|flux| of the float64 plain
+    path, the others to ``NEAR_RESONANCE_TOL`` of it run with float32's
+    resonance floor.  Returns (launches, err away, err near against
+    float32's floor, err near against the float64 answer, number of near
+    columns, ms)."""
     import torch
 
     from pyharp_tpu_torch.rt.disort import kernels as K
@@ -490,18 +553,23 @@ def solve_and_check(ds, ds64, args, args64, want_launches, label):
     launches = K.launch_counts()
     expect_launches(launches, **want_launches)
     assert bool(torch.isfinite(flux).all()), label
+    got = flux if sel is None else flux.index_select(0, sel)
 
     def errs():
-        pr64 = ds64._prepare(*args64, None)
+        pr64 = ds64._prepare(*args64)
         md64 = ds64._solve_mode(pr64)
         ref = ds64._fluxes_from_mode0(pr64, md64)[0]
-        col = (flux.double() - ref).abs().amax(dim=(2, 3)) / ref.abs().max()
+        col = (got.double() - ref).abs().amax(dim=(2, 3)) / ref.abs().max()
+        if "mur" not in md64:          # no beam: no resonance
+            return col, torch.full_like(col, float("inf"))
         return col, resonance_margin(md64).reshape(col.shape)
 
     col, margin = errs()
-    with float32_resonance_floor():
-        col_f, _ = errs()
     near = margin < RESONANCE_MARGIN
+    col_f = col
+    if bool(near.any()):
+        with float32_resonance_floor():
+            col_f, _ = errs()
     err_away = float(col[~near].max()) if bool((~near).any()) else 0.0
     err_near = float(col[near].max()) if bool(near.any()) else 0.0
     err_near_f = float(col_f[near].max()) if bool(near.any()) else 0.0
@@ -509,8 +577,8 @@ def solve_and_check(ds, ds64, args, args64, want_launches, label):
     assert err_near_f <= NEAR_RESONANCE_TOL, (
         f"{label} vs float64 plain with float32's resonance floor near a "
         f"resonance: {err_near_f:.2e}")
-    del flux, col, col_f
-    ms = cuda_ms(lambda: ds.forward(*args).mean(dim=0), 10)
+    del flux, got, col, col_f
+    ms = cuda_ms(lambda: ds.forward(*args).mean(dim=0), steps)
     return launches, err_away, err_near_f, err_near, int(near.sum()), ms
 
 
@@ -786,32 +854,45 @@ def plain_check(errs: dict):
     return check
 
 
-def thermal_records(path, launches, pr, md, ang):
+def thermal_records(path, launches, pr, md, ang, once=False):
     """K1, K2 and K3 against their plain versions on a thermal path's own
-    inputs, every column, to phase 2's and 3's bounds, each timed; the
-    entries of the ``kernels`` line."""
+    inputs, every column, to phase 2's and 3's bounds, each timed
+    (``once`` as in ``kernel_record``); the entries of the ``kernels``
+    line."""
     from pyharp_tpu_torch.bench.roofline_run import kernel_flops
     from pyharp_tpu_torch.rt.disort import kernels as K
 
+    from pyharp_tpu_torch.rt.disort.disort import FUSED_FLUX_MAX_N
+
     sol = md["sol"]
     N, L, B = sol.gp.shape[0], pr["L"], pr["B"]
+    bwd = (sol.gp, sol.gm, sol.expd, md["P"], md["g"])
+    if N <= FUSED_FLUX_MAX_N:
+        last = kernel_record(
+            "bvp_backward_flux", path, launches["bvp_backward_flux"],
+            K.bvp_backward_flux, K.bvp_backward_flux_plain,
+            (*bwd, md["ptop_p"], md["ptop_m"], md["pb_p"], md["pb_m"], ang),
+            {}, bvp_check, BVP_TOL, kernel_flops("bvp_backward_flux", N, L, B),
+            once=once)
+    else:
+        last = kernel_record(
+            "bvp_backward", path, launches["bvp_backward"], K.bvp_backward,
+            K.bvp_backward_plain, (*bwd, ang), {}, bvp_check, BVP_TOL,
+            kernel_flops("bvp_backward", N, L, B), once=once)
     return [
         kernel_record("stage1_isotropic", path, launches["stage1_isotropic"],
                       K.stage1_isotropic, K.stage1_isotropic_plain,
                       (pr["ssa_s"], pr["dtau"], pr["b_top_lay"], pr["slope"],
                        ang), {}, stage1_check, STAGE1_TOL,
-                      kernel_flops("stage1_isotropic", N, L, B)),
+                      kernel_flops("stage1_isotropic", N, L, B),
+                      once=once),
         kernel_record("bvp_forward", path, launches["bvp_forward"],
                       K.bvp_forward, K.bvp_forward_plain,
                       (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"],
                        ang), {}, bvp_check, BVP_TOL,
-                      kernel_flops("bvp_forward", N, L, B)),
-        kernel_record("bvp_backward_flux", path, launches["bvp_backward_flux"],
-                      K.bvp_backward_flux, K.bvp_backward_flux_plain,
-                      (sol.gp, sol.gm, sol.expd, md["P"], md["g"],
-                       md["ptop_p"], md["ptop_m"], md["pb_p"], md["pb_m"],
-                       ang), {}, bvp_check, BVP_TOL,
-                      kernel_flops("bvp_backward_flux", N, L, B)),
+                      kernel_flops("bvp_forward", N, L, B),
+                      once=once),
+        last,
     ]
 
 
@@ -851,14 +932,14 @@ def sums_check(ins, ang, info: dict, away):
 
 
 def beam_records(path, launches, pr, md, ang, near=None,
-                 sums_vs_float64=False):
+                 sums_vs_float64=False, once=False):
     """The kernels of a beam solve's ``_solve_mode`` (``forward``) against
     their plain versions on that solve's own inputs, every column, each
     timed: K4 (phase moments; no thermal source) or K1's beam variant, K2,
     then K3 (N <= ``FUSED_FLUX_MAX_N``) or K5.  ``near``, as in
     ``kernel_record``, for K2 and K5; with ``sums_vs_float64``, K3 is held
-    by ``sums_check``.  The entries of the ``kernels`` line, in that
-    order."""
+    by ``sums_check``; ``once`` as in ``kernel_record``.  The entries
+    of the ``kernels`` line, in that order."""
     import torch
 
     from pyharp_tpu_torch.bench.roofline_run import kernel_flops
@@ -879,18 +960,19 @@ def beam_records(path, launches, pr, md, ang, near=None,
             kernel_flops("stage1_general", N, L, B, nmom=nmom,
                          sweeps=K.kernel_sweeps(N), thermal=False, beam=True),
             reads=[pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["fbeam"],
-                   md["mur"], md["lam0"]])]
+                   md["mur"], md["lam0"]], once=once)]
     else:
         recs = [kernel_record(
             "stage1_isotropic_beam", path, launches["stage1_isotropic_beam"],
             K.stage1_isotropic_beam, K.stage1_isotropic_beam_plain,
             (*s1, pr["fbeam"], md["mur"], ang), {}, stage1_check, STAGE1_TOL,
-            kernel_flops("stage1_isotropic_beam", N, L, B))]
+            kernel_flops("stage1_isotropic_beam", N, L, B), once=once)]
     recs.append(kernel_record(
         "bvp_forward", path, launches["bvp_forward"], K.bvp_forward,
         K.bvp_forward_plain,
         (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ang), {},
-        bvp_check, BVP_TOL, kernel_flops("bvp_forward", N, L, B), near=near))
+        bvp_check, BVP_TOL, kernel_flops("bvp_forward", N, L, B), near=near,
+        once=once))
     bwd = (sol.gp, sol.gm, sol.expd, md["P"], md["g"])
     if N <= FUSED_FLUX_MAX_N:
         tops = (md["ptop_p"], md["ptop_m"], md["pb_p"], md["pb_m"])
@@ -907,14 +989,372 @@ def beam_records(path, launches, pr, md, ang, near=None,
             "bvp_backward_flux", path, launches["bvp_backward_flux"],
             K.bvp_backward_flux, K.bvp_backward_flux_plain,
             (*bwd, *tops, ang), {}, check, tol,
-            kernel_flops("bvp_backward_flux", N, L, B), near=near))
+            kernel_flops("bvp_backward_flux", N, L, B), near=near,
+            once=once))
         recs[-1].update(info)
     else:
         recs.append(kernel_record(
             "bvp_backward", path, launches["bvp_backward"], K.bvp_backward,
             K.bvp_backward_plain, (*bwd, ang), {}, bvp_check, BVP_TOL,
-            kernel_flops("bvp_backward", N, L, B), near=near))
+            kernel_flops("bvp_backward", N, L, B), near=near, once=once))
     return recs
+
+# ---- 18 to 32 streams (phase 19) --------------------------------------------
+
+# every nstr with a body of N = 9..16 (csrc/*_wide.cu, K5 instantiated)
+NSTR_WIDE = tuple(range(18, 33, 2))
+
+
+def wave_subset(p, stride: int, dtype, kernel: str):
+    """Problem ``p`` on every ``stride``-th wave, in ``dtype`` (the same
+    values: the draws are float32), as ``(disort, args, sel)``, ``sel`` the
+    wave indices: the float64 reference where the whole width does not
+    fit."""
+    import torch
+
+    from pyharp_tpu_torch.rt.disort.disort import Disort
+
+    o = p.disort.options
+    idx = list(range(0, o.nwave, stride))
+    pick = lambda t: tuple(t[i] for i in idx) if t else t
+    ds = Disort(o.replace(nwave=len(idx), wave_lower=pick(o.wave_lower),
+                          wave_upper=pick(o.wave_upper), kernel=kernel))
+    sel = torch.tensor(idx, device=p.prop.device)
+    args = (p.prop.index_select(0, sel).to(dtype),
+            {k: v.index_select(0, sel).to(dtype) for k, v in p.bc.items()},
+            None if p.temf is None else p.temf.to(dtype))
+    return ds, args, sel
+
+
+def modes_distance(got, ref):
+    """Stage 1's (gp, gm, lam, expd) against a reference with the modes of
+    each element matched by eigenvalue: the Jacobi sweeps leave the modes
+    in an order that rounding can change where two rotations nearly tie,
+    and the solve does not depend on it.  Returns (the largest
+    max|err|/max|ref| of the four, the number of elements whose mode order
+    differs)."""
+    import torch
+
+    def sort(out):
+        idx = out[2].argsort(dim=0)
+        cols = idx[None].expand_as(out[0])
+        return (out[0].gather(1, cols), out[1].gather(1, cols),
+                out[2].gather(0, idx), out[3].gather(0, idx)), idx
+
+    (g, gi), (r, ri) = sort(got[:4]), sort(ref[:4])
+    swapped = int((gi != ri).any(dim=0).sum())
+    return max(rel_err(a.double(), b) for a, b in zip(g, r)), swapped
+
+
+def flux_line(label, res, card) -> str:
+    launches, err, err_near_f, err_near, n_near, ms = res
+    return (f"{label}: launches {launches}; max|err|/max|flux| vs float64 "
+            f"plain: {err:.2e} on the columns with every layer over "
+            f"{RESONANCE_MARGIN} from a beam resonance (<= 1e-4); on the "
+            f"other {n_near}, {err_near_f:.2e} vs float64 plain with "
+            f"float32's resonance floor (<= {NEAR_RESONANCE_TOL}) and "
+            f"{err_near:.2e} vs float64 plain; kernel path {ms:.3f} ms/step "
+            f"[{card}]")
+
+
+def stage1_exact(got, ref, what: str) -> float:
+    """``stage1_check``, and the outputs bit-equal to the plain version's
+    (asserted): K1 and K4 are built without multiply-add contraction to
+    compute operation for operation what their plain versions compute."""
+    import torch
+
+    assert all(bool(torch.equal(g, r)) for g, r in zip(got, ref)), (
+        f"{what}: not bit-equal to the plain version")
+    return stage1_check(got, ref, what)
+
+
+def phase19(dev, card: str, regs: dict) -> list:
+    """Phase 19, 18 to 32 streams: the route, every new N against the plain
+    versions, then the paths through the bodies of N = 9..16; returns the
+    entries of the ``kernels`` line."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import (bench_problem, extra_problem,
+                                                 radiance_problem,
+                                                 stage1_inputs)
+    from pyharp_tpu_torch.bench.roofline_run import kernel_flops
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from pyharp_tpu_torch.rt.disort.legendre import lepoly
+    from pyharp_tpu_torch.rt.disort.solver import make_static_angles
+
+    t19 = time.perf_counter()
+    kernels_json = []
+    # the route: every nstr 2..32 in float32 on the card to the kernels, 34
+    # raises before any launch
+    assert all(K.route("auto", "cuda", torch.float32, n) == "cuda"
+               for n in range(1, 17))
+    p = extra_problem(2, 8, 4, 34, g=0.8, device=dev, kernel="auto")
+    K.reset_launches()
+    try:
+        p.disort.forward(p.prop, p.bc)
+        raise AssertionError("nstr 34 in float32 on the card did not raise")
+    except ValueError as exc:
+        assert "no CUDA kernel for N = 17" in str(exc), exc
+    assert not any(K.launch_counts().values()), K.launch_counts()
+    say("19", "route: float32 CUDA tensors at nstr 2..32 -> 'cuda'; nstr 34 "
+              "raises before any launch")
+
+    # each new N: K1 (thermal, beam) and K4 (thermal x beam, m = 0; m = 1
+    # with a beam; every mode at nstr 32 on the radiance path below)
+    # bit-equal to their plain versions, K4's distance from float64 (8
+    # Jacobi sweeps at every N > 4), K2 and K5 against their plain versions
+    # on 1018 columns (the last block partial) x 8 layers
+    msgs = []
+    for nstr in NSTR_WIDE:
+        L, B = 37, 4096
+        ang = make_static_angles(nstr, nstr, 0)
+        rng = np.random.default_rng(300 + nstr)
+        ssa, dtau, btop, slope = stage1_inputs(L, B, seed=400 + nstr,
+                                               device=dev)
+        fbeam = torch.tensor(rng.uniform(0.5, 4.0, B), dtype=torch.float32,
+                             device=dev)
+        mu0 = rng.uniform(0.1, 1.0, B)
+        mur = torch.tensor(np.broadcast_to(mu0, (L, B)).copy(),
+                           dtype=torch.float32, device=dev)
+        stage1_exact(K.stage1_isotropic(ssa, dtau, btop, slope, ang),
+                     K.stage1_isotropic_plain(ssa, dtau, btop, slope, ang),
+                     f"K1 nstr {nstr}")
+        stage1_exact(
+            K.stage1_isotropic_beam(ssa, dtau, btop, slope, fbeam, mur, ang),
+            K.stage1_isotropic_beam_plain(ssa, dtau, btop, slope, fbeam, mur,
+                                          ang), f"K1 beam nstr {nstr}")
+        pm = torch.tensor(
+            np.stack([hg_moments(0.2 if b % 2 else 0.8, nstr)
+                      for b in range(B)], axis=-1)[None].repeat(L, axis=0),
+            dtype=torch.float32, device=dev)
+        mu0_t = torch.tensor(mu0, dtype=torch.float32, device=dev)
+        d64 = 0.0
+        for m in (0, 1):
+            angm = make_static_angles(nstr, nstr, m)
+            lam0 = lepoly(mu0_t, m, angm.lam_tables.shape[0] - 1).contiguous()
+            for thermal in ((True, False) if m == 0 else (False,)):
+                kw = dict(thermal=thermal, fbeam=fbeam, mur=mur, lam0=lam0)
+                a4 = (ssa, pm, dtau, btop, slope, angm)
+                got = K.stage1_general(*a4, **kw)
+                stage1_exact(got, K.stage1_general_plain(*a4, **kw),
+                             f"K4 nstr {nstr} m {m} thermal {thermal}")
+                if m == 0 and thermal:
+                    ref64 = K.stage1_general_plain(
+                        *(x.double() for x in a4[:5]), angm, thermal=True,
+                        fbeam=fbeam.double(), mur=mur.double(),
+                        lam0=lam0.double())
+                    d64, swapped = modes_distance(got, ref64)
+                    del ref64
+        p = extra_problem(2, 509, 8, nstr, g=0.8, device=dev, kernel="torch",
+                          seed=nstr)
+        ds = p.disort
+        pr = ds._prepare(p.prop, p.bc, None)
+        md = ds._solve_mode(pr)
+        s5, a0 = md["sol"], ds._ang0
+        e2 = bvp_check(K.bvp_forward(s5.gp, s5.gm, s5.expd, md["dblk"],
+                                     pr["albedo"], a0), (md["P"], md["g"]),
+                       f"K2 nstr {nstr}")
+        bwd = (s5.gp, s5.gm, s5.expd, md["P"], md["g"], a0)
+        e5 = bvp_check(K.bvp_backward(*bwd), K.bvp_backward_plain(*bwd),
+                       f"K5 nstr {nstr}")
+        msgs.append(f"nstr {nstr}: K1, K1 beam bit-equal; K4 (m 0 thermal "
+                    f"on/off, m 1) bit-equal, its float32 vs float64 plain "
+                    f"(gp, gm, lam, expd; modes matched by eigenvalue, "
+                    f"{swapped} elements of {L * B} hold them in another "
+                    f"order) {d64:.2e}; K2 {e2:.2e}, K5 {e5:.2e}")
+        del p, ds, pr, md, s5, bwd, pm, got
+    say("19", "at L 37 x B 4096 (stage 1) and 1018 columns x 8 layers "
+              "(BVP): " + "; ".join(msgs) + f" ({STAGE1_TOL}; {BVP_TOL}) "
+              f"[{card}]")
+    say("19", f"{time.perf_counter() - t19:.1f} s into phase 19")
+
+    # the isotropic thermal solve at nstr 32 through K1, K2, K5; the fixed
+    # secular schedule of N <= 8 beside it, in float32, NaN there.  This
+    # and the isotropic beam run the widths of bench.py and bench_extra.py
+    # at 20 layers: the plain K2 at N = 16, which holds K2 on each path's
+    # inputs and runs in the float64 reference, takes ~0.5 s a layer
+    p = bench_problem(8, 2048, 20, 32, torch.float32, dev, "cuda")
+    ds64, args64, _ = wave_subset(p, 1, torch.float64, "torch")
+    res = solve_and_check(p.disort, ds64, p.args, args64,
+                          dict(stage1_isotropic=1, bvp_forward=1,
+                               bvp_backward=1),
+                          "isotropic thermal nstr 32", steps=3)
+    del ds64, args64
+    path = "bench 8x2048x20 nstr 32"
+    pr = p.disort._prepare(*p.args)
+    md = p.disort._solve_mode(pr)
+    fixed = K._stage1_isotropic_plain(pr["ssa_s"], pr["dtau"],
+                                      pr["b_top_lay"], pr["slope"],
+                                      p.disort._ang0)[0][0]
+    n_nan = int(torch.isnan(fixed).sum())
+    recs = thermal_records(path, res[0], pr, md, p.disort._ang0, once=True)
+    say("19", flux_line(f"isotropic thermal {path}", res, card)
+              + f"; N <= 8's fixed secular schedule on the same inputs in "
+              f"float32: {n_nan} of {fixed.numel()} entries of gp NaN; per "
+              "kernel: " + records_line(recs)
+              + f"; {time.perf_counter() - t19:.1f} s into phase 19")
+    kernels_json += recs
+    del p, pr, md, fixed, recs
+    torch.cuda.empty_cache()
+
+    # the isotropic beam at nstr 32 through K1's beam variant, K2, K5; the
+    # aerosol configuration at nstr 22 (N = 11: 2N does not divide 32)
+    for label, p, want in (
+            ("isotropic beam 500x64x20 nstr 32",
+             extra_problem(500, 64, 20, 32, beam=True, device=dev,
+                           kernel="cuda"),
+             dict(stage1_isotropic_beam=1, bvp_forward=1, bvp_backward=1)),
+            ("aerosol 32x128x20 nstr 22, HG g 0.8",
+             extra_problem(32, 128, 20, 22, g=0.8, device=dev, kernel="cuda"),
+             dict(stage1_general=1, bvp_forward=1, bvp_backward=1))):
+        ds64, args64, _ = wave_subset(p, 1, torch.float64, "torch")
+        res = solve_and_check(p.disort, ds64, (p.prop, p.bc), args64, want,
+                              label, steps=3)
+        del ds64, args64
+        pr = p.disort._prepare(*p.args)
+        md = p.disort._solve_mode(pr)
+        near = resonance_margin(md) < RESONANCE_MARGIN
+        recs = beam_records(label, res[0], pr, md, p.disort._ang0, near=near,
+                            once=True)
+        say("19", flux_line(label, res, card) + "; per kernel: "
+                  + records_line(recs)
+                  + f"; {time.perf_counter() - t19:.1f} s into phase 19")
+        kernels_json += recs
+        del p, pr, md, recs
+        torch.cuda.empty_cache()
+
+    # the configuration of this slice: aerosol_16str_beam at nstr 32, full
+    # width (gp, gm 2.6 GB each, P 5.2 GB); float64 on every 10th wave
+    label = "aerosol_32str_beam 500x128x40 nstr 32, HG g 0.8"
+    p = extra_problem(500, 128, 40, 32, g=0.8, device=dev, kernel="cuda")
+    ds64, args64, sel = wave_subset(p, 10, torch.float64, "torch")
+    res = solve_and_check(p.disort, ds64, (p.prop, p.bc), args64,
+                          dict(stage1_general=1, bvp_forward=1,
+                               bvp_backward=1), label, sel=sel, steps=3)
+    del ds64, args64
+    torch.cuda.empty_cache()
+    pr = p.disort._prepare(*p.args)
+    md = p.disort._solve_mode(pr)
+    near = resonance_margin(md) < RESONANCE_MARGIN
+    recs = beam_records(label, res[0], pr, md, p.disort._ang0, near=near,
+                        once=True)
+    recs[0]["ptxas"] = regs.get("stage1_general_wide<9..16>")
+    recs[1]["ptxas"] = regs.get("bvp_forward_wide<9..16>")
+    recs[2]["ptxas"] = regs.get("bvp_backward<16>")
+    # where K4's time goes: the same launch without the Jacobi sweeps (its
+    # outputs are not used)
+    ms_k4_0 = cuda_ms(lambda: K.stage1_general(
+        pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["b_top_lay"], pr["slope"],
+        p.disort._ang0, thermal=False, sweeps=0, fbeam=pr["fbeam"],
+        mur=md["mur"], lam0=md["lam0"]), 3)
+    say("19", flux_line(label, res, card).replace(
+        "plain:", f"plain on every 10th wave ({len(sel)} waves x 128 "
+                  "columns):", 1)
+        + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+        " GiB; per kernel: " + records_line(recs)
+        + f"; K4 without its 8 Jacobi sweeps {ms_k4_0:.3f} ms; ptxas: "
+        + "; ".join(f"{r['name']} {r['ptxas']}" for r in recs)
+        + f"; {time.perf_counter() - t19:.1f} s into phase 19")
+    kernels_json += recs
+    del p, pr, md, recs, near
+    torch.cuda.empty_cache()
+
+    # the radiances at nstr 32: K4 once per mode (32), K2 and K5 twice;
+    # float64 on every 4th wave, run once, with float32's resonance floor:
+    # on the columns with every layer over RESONANCE_MARGIN from a
+    # resonance the floor never acts, so that run is the float64 answer
+    # there (the plain float64 path at nstr 32 takes minutes a run)
+    shape = (32, 64, 40, 32)
+    nm = shape[3] - 1
+    p = radiance_problem(torch.float32, dev, "cuda", shape=shape)
+    ds = p.disort
+    K.reset_launches()
+    out = ds.intensities(p.prop, p.bc)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    expect_launches(launches, stage1_general=shape[3], bvp_forward=2,
+                    bvp_backward=2)
+    ds64, args64, sel = wave_subset(p, 4, torch.float64, "torch")
+    with float32_resonance_floor():
+        ref_f, margin, _ = radiance_reference(ds64, args64[:2])
+    ncol = ds.options.ncol
+    near = (margin < RESONANCE_MARGIN).reshape(len(sel), ncol)
+    sub = {k: out[k].index_select(0, sel) for k in ("flux", "uu")}
+    res19 = radiance_errors(sub, ref_f, ref_f, near)
+    del ds64, args64, ref_f, sub
+    torch.cuda.empty_cache()
+    ms_step = cuda_ms(lambda: ds.intensities(p.prop, p.bc)["uu"], 2)
+    pr = ds._prepare(p.prop, p.bc, None)
+    modes = ds._modes_batched(pr)
+    fgp, fgm, fexpd, dblk, alb = modes["fold"]
+    L, B = pr["L"], pr["B"]
+    N = shape[3] // 2
+    path = "radiances 32x64x40 nstr 32"
+    # K4 at every mode of the path, as the path launches it: m = 0 (the
+    # problem has no thermal source), then m = 1..31 with the modes' zero
+    # thermal inputs; every column, bit-equal (asserted)
+    ang0 = ds._ang0
+    zero = torch.zeros_like(pr["ssa_s"])
+    lam00 = lepoly(pr["umu0"], 0, ang0.lam_tables.shape[0] - 1).contiguous()
+    calls = [(pr["b_top_lay"], pr["slope"], ang0, lam00)] + [
+        (zero, zero, ds._angles(m), l0)
+        for m, l0 in zip(modes["ms"], modes["lam0"])]
+
+    def k4_modes(k4):
+        def run():
+            return tuple(t for bt, sl, a, l0 in calls
+                         for t in k4(pr["ssa_s"], pr["pmom_s"], pr["dtau"],
+                                     bt, sl, a, thermal=False,
+                                     fbeam=pr["fbeam"], mur=modes["mur"],
+                                     lam0=l0))
+        return run
+
+    nmom = pr["pmom_s"].shape[1]
+    recs = [kernel_record(
+        "stage1_general", path + f", modes 0..{nm}",
+        launches["stage1_general"], k4_modes(K.stage1_general),
+        k4_modes(K.stage1_general_plain), (), {}, stage1_exact, STAGE1_TOL,
+        len(calls) * kernel_flops("stage1_general", N, L, B, nmom=nmom,
+                                  sweeps=K.kernel_sweeps(N), thermal=False,
+                                  beam=True),
+        reads=[pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["fbeam"],
+               modes["mur"]] * len(calls) + [lam00, modes["lam0"]],
+        once=True)]
+    recs[0].update(bit_equal=True,
+                   ptxas=regs.get("stage1_general_wide<9..16>"))
+    # the folded columns near a beam resonance, from the float32 modes
+    near_fold = (modes_margin(modes) < RESONANCE_MARGIN).reshape(nm * B)
+    recs.append(kernel_record(
+        "bvp_forward", path + f", modes 1..{nm} folded",
+        launches["bvp_forward"], K.bvp_forward, K.bvp_forward_plain,
+        (fgp, fgm, fexpd, dblk, alb, ang0), {}, bvp_check, BVP_TOL,
+        kernel_flops("bvp_forward", N, L, nm * B), near=near_fold, once=True))
+    Pm, gm_ = K.bvp_forward(fgp, fgm, fexpd, dblk, alb, ang0)
+    recs.append(kernel_record(
+        "bvp_backward", path + f", modes 1..{nm} folded",
+        launches["bvp_backward"], K.bvp_backward, K.bvp_backward_plain,
+        (fgp, fgm, fexpd, Pm, gm_, ang0), {}, bvp_check, BVP_TOL,
+        kernel_flops("bvp_backward", N, L, nm * B), near=near_fold,
+        once=True))
+    nrad = out["uu"].numel()
+    n_near = int(near.sum())
+    say("19", f"radiances {'x'.join(map(str, shape[:3]))} nstr 32: launches "
+              f"{launches}; uu {tuple(out['uu'].shape)} finite; vs the "
+              f"float64 plain path with float32's resonance floor on every "
+              f"4th wave ({len(sel)} waves x {ncol} columns): " + "; ".join(
+                  f"{k} {a:.2e} on the {near.numel() - n_near} columns away "
+                  f"from a resonance (<= 1e-4{' of the column' if k == 'uu' else ''}), "
+                  f"{f:.2e} on the {n_near} near ones (<= {NEAR_RESONANCE_TOL})"
+                  for k, (a, f, _, _) in res19.items())
+              + f"; step {ms_step:.3f} ms = {nrad / ms_step * 1e3:.0f} "
+              f"radiances/s ({nrad}); per kernel (K4 over the {len(calls)} "
+              "modes, bit-equal to its plain version on every column): "
+              + records_line(recs) + f" [{card}]")
+    kernels_json += recs
+    del p, ds, out, pr, modes, fgp, fgm, fexpd, dblk, alb, Pm, gm_, recs
+    torch.cuda.empty_cache()
+    say("19", f"phase 19 took {time.perf_counter() - t19:.1f} s [{card}]")
+    return kernels_json
 
 
 def main() -> None:
@@ -1167,7 +1607,7 @@ def main() -> None:
                             kernel="torch")
         ds64, prop64, bc64 = p64.disort, p64.prop, p64.bc
         launches, err, err_near_f, err_near, n_near, ms = solve_and_check(
-            ds, ds64, (prop, bc), (prop64, bc64), want, label)
+            ds, ds64, (prop, bc), (prop64, bc64, None), want, label)
         del p64, ds64, prop64, bc64
         say(phase, f"{label} {nwave}x{ncol}x{nlyr} nstr {nstr}: launches "
                    f"{launches}; max|err|/max|flux| vs float64 plain: "
@@ -1935,6 +2375,9 @@ def main() -> None:
         if line.strip():
             say("18", line)
     say("18", f"phase 18 took {time.perf_counter() - t18:.1f} s [{card}]")
+
+    # ---- phase 19: 18 to 32 streams -----------------------------------------
+    kernels_json += phase19(dev, card, regs)
 
     print(card)
     print(json.dumps({"kernels": kernels_json}))

@@ -63,6 +63,12 @@ def kernel_flops(name: str, N: int, L: int, B: int, *, nmom: int = 0,
         bis = 10 if N <= 4 else 12
         per = (N * (bis * (6 * N + 3) + 2 * (6 * N + 9))
                + N * (N * max(N - 2, 0) + 10 * N + 4) + 3 * N)
+        if N > K.NARROW_MAX_N:
+            # per root: the midpoint and K.WIDE_BISECT sums s - ssa sum c v
+            # (a subtract, divide, multiply and add a term), two Newton
+            # steps, the eigenvector and its normalisation
+            per = (N * ((1 + K.WIDE_BISECT) * (4 * N + 3) + 2 * (6 * N + 9)
+                        + 15 * N + 6) + 3 * N)
         if name.endswith("_beam"):
             per += _lu_flops(N, 1) + N * N + 6 * N + 2 * N * N + 2 * N + 7 * N + 4
         return per * L * B

@@ -73,8 +73,8 @@ class DisortOptions:
 
     ``kernel``: ``"auto"`` launches the CUDA kernels for float32 CUDA
     tensors and runs the plain PyTorch versions otherwise
-    (``kernels.route``; float32 CUDA tensors at nstr > 16, which no kernel
-    is instantiated for, raise); ``"torch"`` runs the plain versions on any
+    (``kernels.route``; float32 CUDA tensors at nstr > 32, which no kernel
+    runs, raise); ``"torch"`` runs the plain versions on any
     device and dtype; ``"cuda"`` launches the kernels and raises on
     anything they cannot run.
     """

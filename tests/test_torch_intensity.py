@@ -205,11 +205,15 @@ def test_k4_plain_at_every_mode_matches_jax_f64(nstr):
     ("auto", "cpu", torch.float64, 8, "torch"),
     ("torch", "cuda", torch.float32, 4, "torch"),
     ("cuda", "cuda", torch.float64, 3, "cuda"),      # the wrappers raise
+    *(("auto", "cuda", torch.float32, n, "cuda") for n in range(9, 17)),
+    ("cuda", "cuda", torch.float32, 16, "cuda"),     # nstr 32
+    ("auto", "cuda", torch.float64, 16, "torch"),
+    ("auto", "cpu", torch.float32, 16, "torch"),
 ])
 def test_route_is_a_function_of_device_dtype_and_n(kernel, device, dtype, N,
                                                    want):
     """``kernels.route``: the kernels for float32 CUDA tensors under
-    "auto" (every nstr up to 16 has an instantiation), the plain versions
+    "auto" (every nstr up to 32 has a kernel), the plain versions
     otherwise, as the JAX package's ``_use_pallas``
     (``disort.py:311-319``); decided before any launch, from these three
     facts alone."""
@@ -221,13 +225,13 @@ def test_route_refuses_what_it_cannot_run():
         K.route("cuda", "cpu", torch.float32, 4)
     with pytest.raises(ValueError, match="kernel must be"):
         K.route("pallas", "cuda", torch.float32, 4)
-    # no instantiation at nstr > 16: float32 on the card raises, it is not
+    # no kernel at nstr > 32: float32 on the card raises, it is not
     # handed to the plain versions
     for kernel in ("auto", "cuda"):
-        with pytest.raises(ValueError, match="no CUDA kernel for N = 16"):
-            K.route(kernel, "cuda", torch.float32, 16)
-    assert K.route("auto", "cuda", torch.float64, 16) == "torch"
-    assert K.route("auto", "cpu", torch.float32, 16) == "torch"
+        with pytest.raises(ValueError, match="no CUDA kernel for N = 17"):
+            K.route(kernel, "cuda", torch.float32, 17)
+    assert K.route("auto", "cuda", torch.float64, 17) == "torch"
+    assert K.route("auto", "cpu", torch.float32, 17) == "torch"
     ds = Disort(DisortOptions(kernel="cuda", nstr=4))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ds._kernels(torch.device("cpu"), torch.float32)
