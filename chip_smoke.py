@@ -21,7 +21,9 @@ or more:
 1. builds the kernels from the checkout's sources, prints the build time
    and each kernel's registers, stack and spills (K1-K5 at N = 1..8, every
    nstr up to 16; K1, K4 and K2 at N = 9..16 as one body each,
-   ``<kernel>_wide<9..16>``, K5 at each N = 9..16), K2 as its bodies (one
+   ``<kernel>_wide<9..16>``: K4 a team of 4 lanes per element, K2 a warp
+   per column, each on a line of its own; K5 at each N = 9..16), K2 as
+   its bodies (one
    thread per column for N < 8, ``bvp_forward_team`` for N = 8) and K6 as
    its instantiations per mode (``bvp_fused_ab`` / ``_flux``, one thread
    per column for N <= 4; ``bvp_fused_team`` for N = 8);
@@ -165,7 +167,8 @@ or more:
     every nstr 2..32 to the kernels, and nstr 34 raises before any launch;
     at every nstr 18..32, K1 and its beam variant (L 37 x B 4096, ssa 0
     and 0.999999 entries) and K4 (thermal x beam at m = 0, and m = 1)
-    bit-equal to their plain versions (asserted), K4's float32 distance
+    bit-equal to their plain versions (asserted; K4 also on 37 x 509
+    elements at nstr 18 and 32, its last block partial), K4's float32 distance
     from float64 printed with the modes matched by eigenvalue, K2 and K5
     on 1018 columns x 8 layers to phase 3's bound; then through the wide
     bodies, each path's fluxes against float64 as phase 7 holds them and
@@ -177,7 +180,9 @@ or more:
     configuration at nstr 22 (32 x 128 x 20, HG g = 0.8; N = 11, where 2N
     does not divide a warp) and at nstr 32 in full width (500 x 128 x 40:
     K4, K2 and K5 once each; float64 on every 10th wave; K4 without its
-    Jacobi sweeps timed beside), and ``Disort.intensities`` at nstr 32
+    Jacobi sweeps timed beside, and ``torch.linalg.eigh`` once on as
+    many symmetric 16 x 16 matrices as a yardstick of the sweeps alone),
+    and ``Disort.intensities`` at nstr 32
     (32 x 64 x 40: K4 32 times, held bit-equal at every mode m = 0..31,
     K2 and K5 twice, held on the folded modes; float64 with float32's
     resonance floor on every 4th wave).
@@ -1003,6 +1008,8 @@ def beam_records(path, launches, pr, md, ang, near=None,
 
 # every nstr with a body of N = 9..16 (csrc/*_wide.cu, K5 instantiated)
 NSTR_WIDE = tuple(range(18, 33, 2))
+# matrices a torch.linalg.eigh call of phase 19's yardstick
+EIGH_BATCH = 1 << 14
 
 
 def wave_subset(p, stride: int, dtype, kernel: str):
@@ -1166,6 +1173,30 @@ def phase19(dev, card: str, regs: dict) -> list:
     say("19", "at L 37 x B 4096 (stage 1) and 1018 columns x 8 layers "
               "(BVP): " + "; ".join(msgs) + f" ({STAGE1_TOL}; {BVP_TOL}) "
               f"[{card}]")
+    # K4's last block partial: L 37 x B 509 elements is no multiple of the
+    # 32 a block of the body at N = 9..16 takes
+    for nstr in (18, 32):
+        L, B = 37, 509
+        ang = make_static_angles(nstr, nstr, 0)
+        rng = np.random.default_rng(500 + nstr)
+        ssa, dtau, btop, slope = stage1_inputs(L, B, seed=600 + nstr,
+                                               device=dev)
+        fbeam = torch.tensor(rng.uniform(0.5, 4.0, B), dtype=torch.float32,
+                             device=dev)
+        mu0 = torch.tensor(rng.uniform(0.1, 1.0, B), dtype=torch.float32,
+                           device=dev)
+        mur = mu0[None].expand(L, B).contiguous()
+        pm = torch.tensor(hg_moments(0.8, nstr)[None, :, None]
+                          .repeat(L, axis=0).repeat(B, axis=2),
+                          dtype=torch.float32, device=dev)
+        lam0 = lepoly(mu0, 0, ang.lam_tables.shape[0] - 1).contiguous()
+        a4 = (ssa, pm, dtau, btop, slope, ang)
+        kw = dict(thermal=True, fbeam=fbeam, mur=mur, lam0=lam0)
+        stage1_exact(K.stage1_general(*a4, **kw),
+                     K.stage1_general_plain(*a4, **kw),
+                     f"K4 nstr {nstr} on {L} x {B} elements")
+    say("19", f"K4 bit-equal at nstr 18 and 32 on 37 x 509 elements (the "
+              f"last block partial) [{card}]")
     say("19", f"{time.perf_counter() - t19:.1f} s into phase 19")
 
     # the isotropic thermal solve at nstr 32 through K1, K2, K5; the fixed
@@ -1256,7 +1287,35 @@ def phase19(dev, card: str, regs: dict) -> list:
         + "; ".join(f"{r['name']} {r['ptxas']}" for r in recs)
         + f"; {time.perf_counter() - t19:.1f} s into phase 19")
     kernels_json += recs
+    n_elem = pr["ssa_s"].numel()
+    ms_k4_sweeps = recs[0]["ms"] - ms_k4_0
     del p, pr, md, recs, near
+    torch.cuda.empty_cache()
+    # a yardstick for the Jacobi part of K4 only: torch.linalg.eigh
+    # (cuSOLVER) on as many symmetric 16 x 16 matrices as the problem has
+    # elements, drawn from a seed, timed once over all of them; cuSOLVER's
+    # batched solver refused 32,768 matrices in one call (torch 2.11, CUDA
+    # 12.8), so they go in batches of EIGH_BATCH.  The port never calls it
+    gen = torch.Generator(device=dev).manual_seed(19)
+    sym = torch.randn((n_elem, 16, 16), generator=gen, device=dev)
+    sym = sym + sym.transpose(1, 2)
+    torch.linalg.eigh(sym[:EIGH_BATCH])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    lam_eigh = [torch.linalg.eigh(sym[i:i + EIGH_BATCH])[0]
+                for i in range(0, n_elem, EIGH_BATCH)]
+    stop.record()
+    torch.cuda.synchronize()
+    ms_eigh = start.elapsed_time(stop)
+    assert all(bool(torch.isfinite(w).all()) for w in lam_eigh)
+    say("19", f"Jacobi yardstick: torch.linalg.eigh on {n_elem} symmetric "
+              f"16 x 16 float32 matrices, {EIGH_BATCH} a call, "
+              f"{ms_eigh:.3f} ms, once; K4's 8 Jacobi sweeps on as many "
+              f"elements {ms_k4_sweeps:.3f} ms (K4 less K4 without its "
+              f"sweeps; not a library call of the port) [{card}]")
+    del sym, lam_eigh
     torch.cuda.empty_cache()
 
     # the radiances at nstr 32: K4 once per mode (32), K2 and K5 twice;
@@ -1393,6 +1452,11 @@ def main() -> None:
     regs = ptxas_summary(lib.ptxas_log)
     say("1", f"built {lib.path.name} in {lib.build_seconds:.1f} s; ptxas: "
              + "; ".join(f"{k}: {v}" for k, v in regs.items()))
+    say("1", "the bodies of N = 9..16: K4 a team of 4 lanes per element, "
+             "its Jacobi set in registers (stage1_general_wide<9..16>: "
+             f"{regs.get('stage1_general_wide<9..16>')}); K2 a warp per "
+             "column, prefix-max pivot bits (bvp_forward_wide<9..16>: "
+             f"{regs.get('bvp_forward_wide<9..16>')})")
 
     # ---- phase 2: K1 against its plain version -----------------------------
     k1_err = {}

@@ -21,29 +21,51 @@
 // Loops over positions are unrolled over all 32 and skip the empty ones
 // (a test on N, the same in every lane), so every register index is a
 // constant and the active positions come in the system's own order: the
-// elimination is the unpadded one, step for step.  Lane p < N also owns
-// unit column p (which selects lower-block row N + p) and lane 16 the
-// right-hand side.  The pivot lane replays the plain bubble (strict
-// |a_r| > |a_c| swaps) and broadcasts the swap bits; multipliers and the
-// upper triangle come by shuffle; Q lives in shared memory per column, rg
-// with the rhs lane.  A block of kCols = 4 columns stages each layer's gp,
-// gm, E and dblk with cp.async, two stages, while the previous layer is
-// solved, and P_l, g_l leave through a shared buffer in coalesced stores:
-// 37,376 bytes of shared memory for any N <= 16.  Registers and spills:
-// chip_smoke.py phase 1 prints them.
+// elimination is the unpadded one, step for step.  The layer is compiled
+// twice: for N = 16, where no position is empty and no test is left (the
+// tests cost 1.6x the time there), and for N taken at run time.  Lane
+// p < N also owns unit column p (which selects lower-block row N + p) and
+// lane 16 the right-hand side.  The pivot: the plain bubble (strict |a_r| > |a_c|
+// swaps over the live suffix) swaps exactly at the rows whose |a_r| beats
+// the running max of |a_k|, c <= k < r, NaNs never beating and never
+// counted (a NaN pivot stands as +inf); lane c spills its column to shared
+// memory, each lane takes its row's entry, and a prefix max over the
+// lanes (five shuffles, fmaxf skipping NaNs) and a ballot give every lane
+// the swap bits, the same in the whole warp, in place of a 31-step chain
+// of compare-selects in every lane.  Every lane applies the swaps to its
+// own columns, a group of 8 rows at a time and none where no row of the
+// group swaps; multipliers and the upper triangle come by shuffle; Q and
+// rg live in shared memory per column, so that a thread needs at most 128
+// registers (kMinBlocks = 4: 16 warps an SM; at 167 registers, 12 warps,
+// the body took 1.3x as long).  A block of kCols = 4 columns
+// stages each layer's gp, gm, E and dblk with cp.async, two stages, while
+// the previous layer is solved, and P_l, g_l leave through a shared buffer
+// in coalesced stores: 38,144 bytes of shared memory for any N <= 16.
+// Registers and spills: chip_smoke.py phase 1 prints them; PERF.md has the
+// time of the body that came before (the bubble in every lane, rg in
+// registers, 168 registers: 2.3x as long on an NVIDIA H100 80GB HBM3 at
+// 700 W) beside this one's.
 
 #include "wide.cuh"
+
+#ifndef PYHARP_K2_MIN_BLOCKS
+#define PYHARP_K2_MIN_BLOCKS 4
+#endif
 
 namespace {
 
 struct WideGeom {
   static constexpr int kThreads = 128;
   static constexpr int kCols = kThreads / 32;         // a warp per column
+  // blocks an SM must hold: 4 caps a thread at 128 registers
+  static constexpr int kMinBlocks = PYHARP_K2_MIN_BLOCKS;
   static constexpr int kPad = kCols + 1;
   static constexpr int kInMax = 2 * kNMax * kNMax + 3 * kNMax;
   static constexpr int kOutMax = 2 * kNMax * kNMax + 2 * kNMax;
+  // per column: Q (n x n), rg and the pivot column
+  static constexpr int kColFloats = kNMax * kNMax + kNMax + 32;
   static constexpr int kSmemBytes = static_cast<int>(sizeof(float))
-      * ((2 * kInMax + kOutMax) * kPad + kCols * kNMax * kNMax);
+      * ((2 * kInMax + kOutMax) * kPad + kCols * kColFloats);
   static_assert(kSmemBytes <= 48 * 1024, "dynamic shared memory over 48 KB");
 };
 
@@ -60,17 +82,24 @@ __device__ __forceinline__ bool live(int p, int n) { return (p & 15) < n; }
 // [ -[gm, gp E] + Q [gp, gm E] ; [gp E, gm] ] (the Lambertian fold on the
 // last layer), the lane's right-hand-side column, the elimination, the
 // lane's solution column into `out` (P at r*n + p, g at 2n^2 + r), then
-// the carry: Q into `q` (row-major, n x n), rg on the rhs lane.
+// the carry: Q into `q` (row-major, n x n), then rg at q + kNMax^2 (from
+// the rhs lane); q + kNMax^2 + kNMax holds the pivot column.
+// NF = 16 compiles the layer for n = 16, every position live and no test
+// on n left (the main path, nstr 32); NF = 0 takes n at run time.
+template <int NF>
 __device__ __forceinline__ void wide_forward_layer(
-    const float* in, float* out, float* q, float (&rg)[kNMax], int p, int n,
-    bool last, float alb, const FloatN<kNMax>& wmu) {
+    const float* in, float* out, float* q, int p, int n_arg, bool last,
+    float alb, const FloatN<kNMax>& wmu) {
+  const int n = NF > 0 ? NF : n_arg;
   constexpr int kPad = WideGeom::kPad;
   auto at = [&](int s) { return in[s * kPad]; };
   const int nn = n * n;
   const bool lo = p < kHalf;
   const int jj = live(p, n) ? (p & 15) : 0;   // idle lanes read column 0
+  float* rg = q + kNMax * kNMax;
+  float* pc = rg + kNMax;
 
-  float a[32];
+  float a[32] = {};
   {
     const float ej = at(2 * nn + jj);
     float gpc[kNMax];
@@ -123,7 +152,7 @@ __device__ __forceinline__ void wide_forward_layer(
     if (i < n) {
       const float dt = at(2 * nn + n + i);
       const float db = at(2 * nn + 2 * n + i);
-      u[i] = rhs ? dt - rg[i] : 0.0f;
+      u[i] = rhs ? dt - rg[i] : 0.0f;   // rg read before the carry below
       u[kHalf + i] = rhs ? db : ((p == i) ? 1.0f : 0.0f);
     }
   }
@@ -132,28 +161,45 @@ __device__ __forceinline__ void wide_forward_layer(
 #pragma unroll
   for (int c = 0; c < 32; ++c) {
     if (!live(c, n)) continue;
-    float champ = a[c];
-    unsigned bits = 0u;
+    // the swap bits: lane c's column, an entry a lane, then the running
+    // max of |a_k| over c <= k < r by a prefix max over the lanes
+    if (p == c) {
 #pragma unroll
-    for (int r = c + 1; r < 32; ++r) {
-      if (!live(r, n)) continue;
-      const bool sw = fabsf(a[r]) > fabsf(champ);
-      bits |= sw ? (1u << r) : 0u;
-      champ = sw ? a[r] : champ;
+      for (int r4 = c / 4; r4 < 8; ++r4) {
+        reinterpret_cast<float4*>(pc)[r4] =
+            make_float4(a[4 * r4], a[4 * r4 + 1], a[4 * r4 + 2], a[4 * r4 + 3]);
+      }
     }
-    bits = __shfl_sync(kFull, bits, c);
+    __syncwarp(kFull);
+    const float x = fabsf(pc[p]);
+    __syncwarp(kFull);                 // read before the next pivot's store
+    const bool cand = p > c && live(p, n);
+    float run = p == c ? (x != x ? INFINITY : x) : (cand ? x : -1.0f);
 #pragma unroll
-    for (int r = c + 1; r < 32; ++r) {
-      if (!live(r, n)) continue;
-      const bool sw = (bits >> r) & 1u;
-      const float ha = sw ? a[r] : a[c];
-      const float la = sw ? a[c] : a[r];
-      const float hu = sw ? u[r] : u[c];
-      const float lu = sw ? u[c] : u[r];
-      a[c] = ha;
-      a[r] = la;
-      u[c] = hu;
-      u[r] = lu;
+    for (int d = 1; d < 32; d *= 2) {
+      const float y = __shfl_up_sync(kFull, run, d);
+      if (p >= d) run = fmaxf(run, y);
+    }
+    const float before = __shfl_up_sync(kFull, run, 1);
+    const unsigned bits = __ballot_sync(kFull, cand && x > before);
+    // the swaps in the bubble's order, rows in groups of 8 skipped whole
+    // where none swaps (bits are the same in every lane: no divergence)
+#pragma unroll
+    for (int g = (c + 1) / 8; g < 4; ++g) {
+      if ((bits >> (8 * g)) & 0xffu) {
+#pragma unroll
+        for (int r = 8 * g; r < 8 * g + 8; ++r) {
+          if (r <= c || !live(r, n)) continue;
+          if ((bits >> r) & 1u) {
+            const float ta = a[c];
+            a[c] = a[r];
+            a[r] = ta;
+            const float tu = u[c];
+            u[c] = u[r];
+            u[r] = tu;
+          }
+        }
+      }
     }
     const float inv = 1.0f / __shfl_sync(kFull, a[c], c);
 #pragma unroll
@@ -201,12 +247,12 @@ __device__ __forceinline__ void wide_forward_layer(
         acc = (s == 0) ? rn * u[0] : acc + rn * u[s];
       }
       if (p < n) q[i * n + p] = acc;
-      rg[i] = acc;                   // read on the rhs lane only
+      if (rhs) rg[i] = acc;
     }
   }
 }
 
-__global__ void __launch_bounds__(WideGeom::kThreads)
+__global__ void __launch_bounds__(WideGeom::kThreads, WideGeom::kMinBlocks)
 bvp_forward_wide_kernel(const float* __restrict__ gp_in,
                         const float* __restrict__ gm_in,
                         const float* __restrict__ e_in,
@@ -215,7 +261,7 @@ bvp_forward_wide_kernel(const float* __restrict__ gp_in,
                         float* __restrict__ p_out, float* __restrict__ g_out,
                         int n, int L, int64_t B, FloatN<kNMax> wmu) {
   using G = WideGeom;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   constexpr int kStage = G::kInMax * G::kPad;
   const int nn = n * n;
   const int k_in = 2 * nn + 3 * n;
@@ -225,7 +271,7 @@ bvp_forward_wide_kernel(const float* __restrict__ gp_in,
   const int tid = static_cast<int>(threadIdx.x);
   const int p = tid & 31;
   const int col = tid >> 5;
-  float* q = outb + G::kOutMax * G::kPad + col * kNMax * kNMax;
+  float* q = outb + G::kOutMax * G::kPad + col * G::kColFloats;
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * G::kCols;
   const int64_t LB = static_cast<int64_t>(L) * B;
   const float alb = albedo[b0 + col < B ? b0 + col : B - 1];
@@ -247,17 +293,20 @@ bvp_forward_wide_kernel(const float* __restrict__ gp_in,
   };
 
   for (int k = p; k < nn; k += 32) q[k] = 0.0f;
-  float rg[kNMax];
-#pragma unroll
-  for (int i = 0; i < kNMax; ++i) rg[i] = 0.0f;
+  if (p < kNMax) q[kNMax * kNMax + p] = 0.0f;     // rg
   prefetch(0, stage);
 
   for (int l = 0; l < L; ++l) {
     cp_async_wait_all();
     __syncthreads();                 // layer l staged; last outputs stored
     if (l + 1 < L) prefetch(l + 1, stage + ((l + 1) & 1) * kStage);
-    wide_forward_layer(stage + (l & 1) * kStage + col, outb + col, q, rg, p,
-                       n, l == L - 1, alb, wmu);
+    if (n == kNMax) {
+      wide_forward_layer<kNMax>(stage + (l & 1) * kStage + col, outb + col, q,
+                                p, n, l == L - 1, alb, wmu);
+    } else {
+      wide_forward_layer<0>(stage + (l & 1) * kStage + col, outb + col, q, p,
+                            n, l == L - 1, alb, wmu);
+    }
     __syncthreads();                 // the layer's outputs are staged
     for (int idx = tid; idx < k_out * G::kCols; idx += G::kThreads) {
       const int s = idx / G::kCols;

@@ -8,9 +8,14 @@ rows and block columns of the 2N x 2N system sit at fixed positions, the
 upper block's at 0..N-1 and the lower block's at 16..16+N-1; lane p owns
 the block column at position p, lanes p < N also unit column p, lane 16
 the right-hand side.  Loops run over all 32 positions and skip the empty
-ones.  If the positions keep the system's order, the model gives the
-bits of the unpadded team model, and with division in back substitution
-those of the plain version.
+ones.  The swap bits of pivot c are the records of the pivot column: lane
+r takes |a_r| from lane c's column, and row r swaps where |a_r| beats,
+strictly, the prefix max of |a_k| over c <= k < r (``record_bits``, a
+five-step scan over the lanes with ``fmaxf``, which skips NaNs; a NaN
+pivot stands as +inf).  These are the bits of the plain bubble
+(``test_record_bits_are_the_bubble_swaps``).  If the positions keep the
+system's order, the model gives the bits of the unpadded team model, and
+with division in back substitution those of the plain version.
 """
 
 from __future__ import annotations
@@ -18,10 +23,13 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from pyharp_tpu_torch.rt.disort import kernels as K
 
-from .test_torch_team_pivot import _layer_inputs, _model
+from .test_torch_team_pivot import (FINITE, TIED, _layer_inputs, _model,
+                                    swap_flags)
 
 F32 = np.float32
 HALF = 16
@@ -33,6 +41,27 @@ def live(p: int, n: int) -> bool:
 
 def row_at(p: int, n: int) -> int:
     return p if p < HALF else n + p - HALF
+
+
+def record_bits(x, c: int, live_pos):
+    """The swap bits of pivot c as the kernel forms them: ``x`` ``(32,
+    ...)`` holds lane c's column (every lane reads its row's entry),
+    ``live_pos`` the positions that hold a row.  Returns a bool array of
+    x's shape: row r swaps where |a_r| > max |a_k| over c <= k < r."""
+    ax = np.abs(x)
+    lanes = np.arange(x.shape[0]).reshape((-1,) + (1,) * (x.ndim - 1))
+    live_pos = np.asarray(live_pos).reshape(lanes.shape)
+    cand = (lanes > c) & live_pos
+    pivot = np.where(np.isnan(ax), F32(np.inf), ax)
+    run = np.where(lanes == c, pivot, np.where(cand, ax, F32(-1.0)))
+    d = 1
+    while d < x.shape[0]:                       # shfl_up and fmaxf
+        y = np.concatenate([run[:d], run[:-d]])
+        run = np.where(lanes >= d, np.fmax(run, y), run)
+        d *= 2
+    before = np.concatenate([run[:1], run[:-1]])
+    with np.errstate(invalid="ignore"):
+        return cand & (ax > before)
 
 
 def wide_forward(gp, gm, E, dblk, albedo, wmu, reciprocal: bool = True):
@@ -71,14 +100,9 @@ def wide_forward(gp, gm, E, dblk, albedo, wmu, reciprocal: bool = True):
                 for i in range(N):
                     u[p, i] = dl[i] - rg[i] if rhs else 0.0
                     u[p, HALF + i] = dl[N + i] if rhs else F32(p == i)
+            live_pos = [live(s, N) for s in range(32)]
             for c in pos:
-                champ = a[c, c].copy()
-                bits = np.zeros((32, B), bool)
-                for r in pos:
-                    if r > c:
-                        sw = np.abs(a[c, r]) > np.abs(champ)
-                        bits[r] = sw
-                        champ = np.where(sw, a[c, r], champ)
+                bits = record_bits(a[c], c, live_pos)
                 for r in pos:
                     if r > c:
                         for x in (a, u):
@@ -148,3 +172,27 @@ def test_wide_forward_with_division_is_the_plain_forward(nstr):
             assert np.isfinite(x).all()
             np.testing.assert_allclose(x, w, rtol=3e-4,
                                        atol=3e-5 * np.abs(w).max())
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.one_of(TIED, FINITE, st.just(float("nan")),
+                          st.just(float("inf")), st.just(-0.0)),
+                min_size=2, max_size=32),
+       st.integers(0, 31), st.integers(0, 2**32 - 1))
+def test_record_bits_are_the_bubble_swaps(column, col, dead):
+    """The prefix-max record bits equal the pivot lane's bubble swap bits
+    (``swap_flags``, strict |a_r| > |champion|) on drawn columns: ties,
+    zeros of either sign, infinities and NaNs (a NaN never beats the
+    champion, and a NaN pivot is never beaten), with positions left empty
+    as the wide body leaves them between the two blocks."""
+    col = col % len(column)
+    x = np.zeros(32, F32)
+    x[:len(column)] = np.array(column, F32)
+    live_pos = [(r < len(column)) and (r == col or not (dead >> r) & 1)
+                for r in range(32)]
+    got = record_bits(x, col, live_pos)
+    rows = [r for r in range(32) if live_pos[r]]
+    want = swap_flags([x[r] for r in rows], rows.index(col))
+    for k, r in enumerate(rows):
+        assert bool(got[r]) == bool(want[k]), (r, x[rows], col)
+    assert not got[[r for r in range(32) if not live_pos[r]]].any()
