@@ -48,17 +48,13 @@
 
 #include "wide.cuh"
 
-#ifndef PYHARP_K2_MIN_BLOCKS
-#define PYHARP_K2_MIN_BLOCKS 4
-#endif
-
 namespace {
 
 struct WideGeom {
   static constexpr int kThreads = 128;
   static constexpr int kCols = kThreads / 32;         // a warp per column
   // blocks an SM must hold: 4 caps a thread at 128 registers
-  static constexpr int kMinBlocks = PYHARP_K2_MIN_BLOCKS;
+  static constexpr int kMinBlocks = 4;
   static constexpr int kPad = kCols + 1;
   static constexpr int kInMax = 2 * kNMax * kNMax + 3 * kNMax;
   static constexpr int kOutMax = 2 * kNMax * kNMax + 2 * kNMax;

@@ -19,8 +19,8 @@
 // N = 16), against ~8 * 120 rotations * (6N + 30) ~ 1.2e5 flops of Jacobi
 // alone at N = 16 plus three N x N LUs and the products (~N^3 each).
 //
-// Design: a team of kTeam = 4 lanes per element (PYHARP_K4_TEAM; 8 lanes
-// ran slower, PERF.md), one body for every N = 9..16 (wide.cuh).  Lane t
+// Design: a team of kTeam = 4 lanes per element (8 lanes ran slower,
+// PERF.md), one body for every N = 9..16 (wide.cuh).  Lane t
 // of a team owns rows s*kTeam + t (slots s < 16/kTeam) of every matrix.
 //  - The sweeps: the full symmetric Jacobi matrix A lives in registers,
 //    16/kTeam rows of 16 floats a lane, its diagonal in every lane, the
@@ -56,37 +56,14 @@
 // local memory) streamed every rotation through the caches and took 2.4x
 // as long on the same card; PERF.md records both, the team sizes and the
 // variants tried.
-// chip_smoke.py phase 1 prints registers, stack and spills; a build with
-// -DPYHARP_K4_PROFILE counts each phase's cycles (tools/wide_ab.py).
+// chip_smoke.py phase 1 prints registers, stack and spills.
 
 #include "wide.cuh"
-
-#ifndef PYHARP_K4_TEAM
-#define PYHARP_K4_TEAM 4
-#endif
-
-#ifdef PYHARP_K4_PROFILE
-// cycles spent in each phase, summed over the warps (lane 0 of each)
-__device__ unsigned long long g_k4_phase[10];
-#define K4_MARK(k)                                                        \
-  do {                                                                    \
-    if ((threadIdx.x & 31) == 0) {                                        \
-      const long long now = clock64();                                    \
-      atomicAdd(&g_k4_phase[k], static_cast<unsigned long long>(now - mark)); \
-      mark = now;                                                         \
-    }                                                                     \
-  } while (0)
-#else
-#define K4_MARK(k) \
-  do {             \
-  } while (0)
-#endif
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTeam = PYHARP_K4_TEAM;
-static_assert(kTeam == 4 || kTeam == 8, "a team of 4 or 8 lanes");
+constexpr int kTeam = 4;
 constexpr int kRows = kNMax / kTeam;       // rows of each matrix a lane owns
 constexpr int kElems = kThreads / kTeam;   // elements of a block
 constexpr unsigned kFull = 0xffffffffu;
@@ -98,17 +75,14 @@ constexpr int kMat = kNMax * kLd;
 constexpr int kOffG = 2 * kMat;
 constexpr int kOffVb = kOffG + 2 * kNMax;
 constexpr int kUsed = kOffVb + kNMax;
-// the element stride, kTeam times an odd number (mod 32): the 32/kTeam
-// elements of a warp, kTeam rows each at stride kLd, meet 32 distinct
-// banks (at kTeam = 4, 596 floats: three blocks fit an SM's 228 KB)
-constexpr int kStride =
-    kUsed + (kTeam - kUsed % (2 * kTeam) + 2 * kTeam) % (2 * kTeam);
+// the element stride, 4 times an odd number (mod 32): the 8 elements of
+// a warp, 4 rows each at stride kLd, meet 32 distinct banks (596 floats:
+// three blocks fit an SM's 228 KB)
+constexpr int kStride = kUsed + 4;
+static_assert(kStride % 8 == 4, "4 times an odd number of floats");
 constexpr int kSmemBytes = kElems * kStride * static_cast<int>(sizeof(float));
-// blocks an SM must hold: at kTeam = 4, 3 (168 registers a thread)
-#ifndef PYHARP_K4_MIN_BLOCKS
-#define PYHARP_K4_MIN_BLOCKS (kTeam == 4 ? 3 : 1)
-#endif
-constexpr int kMinBlocks = PYHARP_K4_MIN_BLOCKS;
+// blocks an SM must hold: 3 (168 registers a thread)
+constexpr int kMinBlocks = 3;
 // Offsets into kernels.general_tables for n (G2 = 2n rows).
 struct GenTab {
   int even, odd, lam, lam_signed, c2p, mu, w, sqw, sqm, sqmsqw;
@@ -334,9 +308,6 @@ stage1_general_wide_kernel(const float* __restrict__ ssa_in,
   const float* sqw = tab + T.sqw;
   const float* sqm = tab + T.sqm;
   const float ssa = ssa_in[ec];
-#ifdef PYHARP_K4_PROFILE
-  long long mark = clock64();
-#endif
 
   // the moments g_0 = 1, g_1..g_lmax (0 above lmax)
   for (int l = t; l < 2 * kNMax; l += kTeam) {
@@ -345,7 +316,6 @@ stage1_general_wide_kernel(const float* __restrict__ ssa_in,
                                     : 0.0f);
   }
   __syncwarp();
-  K4_MARK(0);
 
   // the Cholesky factor of Uhat (pivots floored at 1e-12), left-looking:
   // the owner of row j forms the pivot, then every lane its rows below
@@ -370,7 +340,6 @@ stage1_general_wide_kernel(const float* __restrict__ ssa_in,
     }
   }
   __syncwarp();
-  K4_MARK(1);
 
   // VL = Vhat Lc by rows into W
 #pragma unroll
@@ -400,7 +369,6 @@ stage1_general_wide_kernel(const float* __restrict__ ssa_in,
     }
   }
   __syncwarp();
-  K4_MARK(2);
 
   // K = Lc^T VL by rows into A's registers, then over VL; the Jacobi
   // matrix (K + K^T) / 2 in full rows (zero outside n x n), its diagonal
@@ -451,9 +419,7 @@ stage1_general_wide_kernel(const float* __restrict__ ssa_in,
   }
   __syncwarp();
 
-  K4_MARK(3);
   for (int it = 0; it < sweeps; ++it) team_sweep<0, 1>(A, Wm, diag, t, n);
-  K4_MARK(4);
 
   // the eigenvalues; Y is in W
 #pragma unroll
@@ -465,7 +431,6 @@ stage1_general_wide_kernel(const float* __restrict__ ssa_in,
     if (i < n) lams[i * kLd] = sqrtf(clamp_min_nan(dg, 1e-12f));
   }
   __syncwarp();
-  K4_MARK(5);
 
   // D = Lc Y / sqrt(mu w) by rows, each over its row of Lc
 #pragma unroll
@@ -487,7 +452,6 @@ stage1_general_wide_kernel(const float* __restrict__ ssa_in,
     }
   }
   __syncwarp();
-  K4_MARK(6);
 
   // Vf by rows (registers); S = -(Vf D) / (mu lam), gp and gm normalised
   // per mode, Sg = gp + gm into W
@@ -552,7 +516,6 @@ stage1_general_wide_kernel(const float* __restrict__ ssa_in,
     }
   }
   __syncwarp();
-  K4_MARK(7);
 
   // Uf[i][j] = (i == j) - ssa Se[i][j] w_j, formed where it is used
   auto uf = [&](int i, int j) {
@@ -668,7 +631,6 @@ stage1_general_wide_kernel(const float* __restrict__ ssa_in,
     }
     __syncwarp();
   }
-  K4_MARK(8);
 
   if (thermal) {
     // U h = (1 - ssa) 1 with Uf in L, then V y0d = 2 mu slope h with Vf
@@ -711,25 +673,9 @@ stage1_general_wide_kernel(const float* __restrict__ ssa_in,
       }
     }
   }
-  K4_MARK(9);
 }
 
 }  // namespace
-
-#ifdef PYHARP_K4_PROFILE
-// The phase cycles of the launches since the last call, then zeroed.
-PYHARP_API int pyharp_stage1_general_wide_profile(unsigned long long* out) {
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess) {
-    err = cudaMemcpyFromSymbol(out, g_k4_phase, sizeof(g_k4_phase));
-  }
-  const unsigned long long zero[10] = {};
-  if (err == cudaSuccess) {
-    err = cudaMemcpyToSymbol(g_k4_phase, zero, sizeof(zero));
-  }
-  return static_cast<int>(err);
-}
-#endif
 
 // As pyharp_stage1_general (stage1_general.cu), for n = 9..16.
 PYHARP_API int pyharp_stage1_general_wide(
@@ -742,14 +688,11 @@ PYHARP_API int pyharp_stage1_general_wide(
   if (n < kWideMinN || n > kNMax) return PYHARP_UNSUPPORTED_N;
   const int64_t lb = static_cast<int64_t>(L) * B;
   if (lb == 0) return 0;
-  static bool attributed = false;
-  if (!attributed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stage1_general_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attributed = true;
-  }
+  // the attribute belongs to the current device: set it on every launch
+  const cudaError_t err = cudaFuncSetAttribute(
+      stage1_general_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const auto grid = static_cast<unsigned>((lb + kElems - 1) / kElems);
   stage1_general_wide_kernel<<<grid, kThreads, kSmemBytes,
                                static_cast<cudaStream_t>(stream)>>>(

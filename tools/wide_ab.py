@@ -2,35 +2,27 @@
 turns, on the card.
 
     git archive <commit> pyharp_tpu_torch/rt/disort/csrc | tar -x -C _checkout/parent
-    python3 tools/wide_ab.py --parent _checkout/parent [--variant NAME=SOURCE:FLAG,...]
+    python3 tools/wide_ab.py --parent _checkout/parent
 
 Builds this tree's kernel library (``kernels.build``) and, in parallel,
-the parent tree's ``stage1_general_wide.cu`` and ``bvp_forward_wide.cu``,
-each into a library of its own, and every ``--variant``: this tree's
-SOURCE built with the extra nvcc FLAGs (``k4_g8=stage1_general_wide.cu:
--DPYHARP_K4_TEAM=8``).  Prints each body's ptxas report.  Then, on the
-inputs of aerosol_32str_beam (500 x 128 x 40, nstr 32, HG g = 0.8, a beam:
-K4 once, K2 once) and of the radiances at nstr 32 (32 x 64 x 40: K4 at
-each of the 32 modes, K2 on the 31 folded modes), it checks every body
-against this tree's (K4 bit-equal, K2 within the BVP bound
-``|err| <= 3e-5 max|ref| + 3e-4 |ref|``) and times each over ``--reps``
-calls with CUDA events, in the order parent, this tree, the variants,
-then back (parent, new, v, v, new, parent).  The K4 times are also taken
-without the Jacobi sweeps.  For every body it also counts the SASS
-instructions of the wide kernels (``cuobjdump -sass``), and a variant
-built with ``-DPYHARP_K4_PROFILE`` reports the cycles K4 spends in each
-of its phases (clock64 at each phase's end, lane 0 of every warp).  One
-JSON line goes to stdout and to ``wide_ab.json`` in ``--out-dir`` (the
-build directory by default).  Needs a CUDA card; raises without one.
+the parent tree's ``stage1_general_wide.cu`` and ``bvp_forward_wide.cu``
+into a library of their own, and prints each body's ptxas report.  Then,
+on the inputs of aerosol_32str_beam (500 x 128 x 40, nstr 32, HG g = 0.8,
+a beam: K4 once, K2 once) and of the radiances at nstr 32 (32 x 64 x 40:
+K4 at each of the 32 modes, K2 on the 31 folded modes), it checks the
+parent's bodies against this tree's (K4 bit-equal, K2 within the BVP
+bound ``|err| <= 3e-5 max|ref| + 3e-4 |ref|``) and times each over
+``--reps`` calls with CUDA events, in the order parent, this tree, this
+tree, parent.  K4 is also timed without its Jacobi sweeps.  One JSON line
+goes to stdout and to ``wide_ab.json`` in ``--out-dir`` (the build
+directory by default).  Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
 import ctypes
 import json
-import re
 import subprocess
 import sys
 import time
@@ -47,53 +39,23 @@ class Swapped:
     """The kernel library with its wide entry points taken from another
     build; the wrappers call ``build().call`` and so go through it."""
 
-    def __init__(self, base, libs: dict):
+    def __init__(self, base, entries: dict):
         self.base = base
-        self.libs = libs        # entry name -> ctypes library
+        self.entries = entries  # entry name -> ctypes function
 
     def call(self, name, *args):
-        lib = self.libs.get(name)
-        if lib is None:
+        fn = self.entries.get(name)
+        if fn is None:
             return self.base.call(name, *args)
-        rc = getattr(lib, name)(*args)
+        rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{name}: kernel launch failed: {rc}")
 
 
-K4_PHASES = ("moments", "cholesky", "vl", "k and a", "sweeps", "eigen and y",
-             "d", "vf, gp and gm", "beam", "thermal")
-
-
-def sass_stats(K, so: Path) -> dict:
-    """Per wide kernel of ``so``: its SASS instruction count and the ten
-    most frequent opcodes."""
-    tool = Path(K._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
-                          text=True, check=True).stdout
-    stats, cur, ops = {}, None, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = m.group(1) if "_wide_kernel" in m.group(1) else None
-            if cur:
-                ops = stats.setdefault(cur, collections.Counter())
-            continue
-        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                     line)
-        if cur and m:
-            ops[m.group(1).split(".")[0]] += 1
-    def key(name):
-        m = re.search(r"([a-z0-9]+_[a-z0-9]+)_wide_kernel(I[A-Za-z0-9]*E)?",
-                      name)
-        return (m.group(1) + (m.group(2) or "")) if m else name
-    return {key(k): dict(total=sum(v.values()), top=v.most_common(10))
-            for k, v in stats.items()}
-
-
-def start_build(K, src: Path, out: Path, flags: list[str]):
+def start_build(K, src: Path, out: Path):
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [K._nvcc(), *K.NVCC_FLAGS, *K.SOURCES[src.name], *flags, "-shared",
-           "-o", str(out), str(src)]
+    cmd = [K._nvcc(), *K.NVCC_FLAGS, *K.SOURCES[src.name], "-shared", "-o",
+           str(out), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -101,11 +63,7 @@ def start_build(K, src: Path, out: Path, flags: list[str]):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--dump-sass", action="store_true",
-                    help="write this tree's wide K4 and K2 SASS into "
-                         "--out-dir")
     ap.add_argument("--out-dir", type=Path,
                     default=REPO / "pyharp_tpu_torch" / "_build" / "ab")
     args = ap.parse_args()
@@ -122,66 +80,43 @@ def main() -> None:
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     build_dir = REPO / "pyharp_tpu_torch" / "_build" / "ab"
-    builds = {}
+    procs = {}
     for src in WIDE:
-        builds[f"parent:{src}"] = (
-            src, build_dir / f"parent_{Path(src).stem}.so",
-            start_build(K, args.parent / "pyharp_tpu_torch/rt/disort/csrc" / src,
-                        build_dir / f"parent_{Path(src).stem}.so", []))
-    for v in args.variant:
-        name, spec = v.split("=", 1)
-        src, *flags = spec.split(":")
-        so = build_dir / f"{name}.so"
-        builds[name] = (src, so, start_build(K, K.CSRC / src, so, flags))
+        so = build_dir / f"parent_{Path(src).stem}.so"
+        procs[src] = (so, start_build(
+            K, args.parent / "pyharp_tpu_torch/rt/disort/csrc" / src, so))
     t0 = time.perf_counter()
     lib = K.build()
     regs = {f"new:{k}": v for k, v in ptxas_summary(lib.ptxas_log).items()
             if "wide" in k}
-    for name, (src, so, proc) in builds.items():
+    entries = {}
+    for src, (so, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        regs.update({f"{name}:{k}": v for k, v in ptxas_summary(log).items()})
+            raise RuntimeError(f"nvcc failed for the parent's {src}:\n{log}")
+        regs.update({f"parent:{k}": v for k, v in ptxas_summary(log).items()})
+        fn = getattr(ctypes.CDLL(str(so)), WIDE[src])
+        fn.argtypes = K._SIGNATURES[WIDE[src]]
+        fn.restype = ctypes.c_int
+        entries[WIDE[src]] = fn
     print(f"built in {time.perf_counter() - t0:.1f} s; ptxas: {regs}",
           flush=True)
-    sass = {"new": sass_stats(K, lib.path)}
-    if args.dump_sass:
-        tool = Path(K._nvcc()).with_name("cuobjdump")
-        text = subprocess.run([str(tool), "-sass", str(lib.path)],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        args.out_dir.mkdir(parents=True, exist_ok=True)
-        for key in ("stage1_general_wide_kernel", "bvp_forward_wide_kernel"):
-            keep, out = False, []
-            for line in text.splitlines():
-                if "Function : " in line:
-                    keep = key in line
-                if keep:
-                    out.append(line)
-            (args.out_dir / f"{key}.sass").write_text(
-                "\n".join(out) + "\n")
-    for name, (src, so, _) in builds.items():
-        sass[name] = sass_stats(K, so)
-    print(f"sass: {sass}", flush=True)
-    libs = {"new": lib}
-    groups = {}
-    for name, (src, so, _) in builds.items():
-        group = name.split(":")[0]
-        groups.setdefault(group, {})[WIDE[src]] = ctypes.CDLL(str(so))
-    for group, entries in groups.items():
-        for entry, cdll in entries.items():
-            fn = getattr(cdll, entry)
-            fn.argtypes = K._SIGNATURES[entry]
-            fn.restype = ctypes.c_int
-        libs[group] = Swapped(lib, entries)
-    order = ["parent", "new", *[g for g in groups if g != "parent"]]
-    turns = order + order[::-1]
+    libs = {"new": lib, "parent": Swapped(lib, entries)}
+    turns = ("parent", "new", "new", "parent")
 
     def use(name):
         K._library = libs[name]
 
+    def timed(what, fn):
+        ms = {}
+        for name in turns:
+            use(name)
+            ms.setdefault(name, []).append(cuda_ms(fn, args.reps))
+        res[what] = ms
+        print(f"{what}: {ms} [{card}]", flush=True)
+
     dev = torch.device("cuda", 0)
-    res = {"card": card, "ptxas": regs, "sass": sass, "reps": args.reps}
+    res = {"card": card, "ptxas": regs, "reps": args.reps}
 
     # aerosol_32str_beam
     p = extra_problem(500, 128, 40, 32, g=0.8, device=dev, kernel="cuda")
@@ -197,60 +132,15 @@ def main() -> None:
     k2 = lambda: K.bvp_forward(sol.gp, sol.gm, sol.expd, md["dblk"],
                                pr["albedo"], ang)
     ref4, ref2 = k4(), k2()
-    for name in order:
-        use(name)
-        got = k4()
-        assert all(torch.equal(a, b) for a, b in zip(got, ref4)), (
-            f"K4 {name} differs from this tree's on aerosol_32str_beam")
-        bvp_check(k2(), ref2, f"K2 {name} on aerosol_32str_beam")
-        del got
-    del ref4, ref2
-    torch.cuda.synchronize()
-    for group, entries in groups.items():
-        cdll = entries.get("pyharp_stage1_general_wide")
-        if cdll is None or not hasattr(cdll, "pyharp_stage1_general_wide_profile"):
-            continue
-        buf = (ctypes.c_ulonglong * len(K4_PHASES))()
-        read = cdll.pyharp_stage1_general_wide_profile
-        read(buf)
-        use(group)
-        k4()
-        assert read(buf) == 0
-        tot = sum(buf[:len(K4_PHASES)])
-        res[f"profile_{group}"] = prof = {
-            ph: [buf[i], buf[i] / max(tot, 1)] for i, ph in enumerate(K4_PHASES)}
-        print(f"K4 phases, {group}, aerosol_32str_beam (cycles summed over "
-              f"warps, share): {prof}", flush=True)
-    for what, fn in (("k4_aerosol", k4), ("k4_aerosol_0_sweeps",
-                                          lambda: k4(0)),
-                     ("k2_aerosol", k2)):
-        ms = {}
-        for name in turns:
-            use(name)
-            ms.setdefault(name, []).append(cuda_ms(fn, args.reps))
-        res[what] = ms
-        print(f"{what}: {ms} [{card}]", flush=True)
-    # K4's sweeps against occupancy: the first columns of every layer, so
-    # many that the card holds 1, 2 or 3 blocks of this tree's body on
-    # every SM; microseconds a rotation, (8 sweeps - 0 sweeps) / 960
-    use("new")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for per_sm in (1, 2, 3):
-        nb = sms * per_sm * 32 // pr["L"]
-        sub = {k: pr[k][:, :nb].contiguous() for k in ("ssa_s", "dtau",
-                                                       "b_top_lay", "slope")}
-        subk = lambda sweeps=None: K.stage1_general(
-            sub["ssa_s"], pr["pmom_s"][:, :, :nb].contiguous(), sub["dtau"],
-            sub["b_top_lay"], sub["slope"], ang, thermal=False, sweeps=sweeps,
-            fbeam=pr["fbeam"][:nb].contiguous(),
-            mur=md["mur"][:, :nb].contiguous(),
-            lam0=md["lam0"][:, :nb].contiguous())
-        t8, t0 = cuda_ms(subk, 5), cuda_ms(lambda: subk(0), 5)
-        res[f"k4_rotation_us_{per_sm}_blocks"] = (t8 - t0) * 1e3 / 960
-        print(f"K4 on {pr['L']} x {nb} elements ({per_sm} block(s) of 32 "
-              f"elements an SM): {t8:.3f} ms, {t0:.3f} without the sweeps, "
-              f"{(t8 - t0) * 1e3 / 960:.3f} us a rotation [{card}]",
-              flush=True)
+    use("parent")
+    got = k4()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref4)), (
+        "K4 of the parent differs from this tree's on aerosol_32str_beam")
+    bvp_check(k2(), ref2, "K2 of the parent on aerosol_32str_beam")
+    del got, ref4, ref2
+    timed("k4_aerosol", k4)
+    timed("k4_aerosol_0_sweeps", lambda: k4(0))
+    timed("k2_aerosol", k2)
     del p, pr, md, sol
     torch.cuda.empty_cache()
 
@@ -277,21 +167,14 @@ def main() -> None:
 
     k2f = lambda: K.bvp_forward(fgp, fgm, fexpd, dblk, alb, ang0)
     ref4, ref2 = k4_modes(), k2f()
-    for name in order:
-        use(name)
-        got = k4_modes()
-        assert all(torch.equal(a, b) for a, b in zip(got, ref4)), (
-            f"K4 {name} differs from this tree's on the radiance modes")
-        del got
-        bvp_check(k2f(), ref2, f"K2 {name} on the folded modes")
-    del ref4, ref2
-    for what, fn in (("k4_radiance_modes", k4_modes), ("k2_folded", k2f)):
-        ms = {}
-        for name in turns:
-            use(name)
-            ms.setdefault(name, []).append(cuda_ms(fn, args.reps))
-        res[what] = ms
-        print(f"{what}: {ms} [{card}]", flush=True)
+    use("parent")
+    got = k4_modes()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref4)), (
+        "K4 of the parent differs from this tree's on the radiance modes")
+    bvp_check(k2f(), ref2, "K2 of the parent on the folded modes")
+    del got, ref4, ref2
+    timed("k4_radiance_modes", k4_modes)
+    timed("k2_folded", k2f)
     K._library = lib
     line = json.dumps(res)
     args.out_dir.mkdir(parents=True, exist_ok=True)
