@@ -441,8 +441,12 @@ def kernel_record(name, path, launches, fn, plain, args, kw, check, tol,
 def records_line(recs) -> str:
     return "; ".join(
         f"{r['name']} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
-        f"{r['bound_ms']:.3f} ms by {r['bound_by']}, max|err|/max|ref| "
-        f"{r['max_rel_err']:.2e}, {r['tolerance']})" for r in recs)
+        f"{r['bound_ms']:.3f} ms by {r['bound_by']}"
+        + (f", division issue floor {r['issue_floor_ms']:.3f} ms"
+           if "issue_floor_ms" in r else "")
+        + (f", ptxas {r['ptxas']}" if "ptxas" in r else "")
+        + f", max|err|/max|ref| {r['max_rel_err']:.2e}, {r['tolerance']})"
+        for r in recs)
 
 
 # ---- the sharded band flux on two ranks sharing the card (phase 17) --------
@@ -1075,6 +1079,38 @@ def stage1_exact(got, ref, what: str) -> float:
     return stage1_check(got, ref, what)
 
 
+# instructions of one correctly rounded float32 division (~10) and of the
+# subtraction and sum term around it (~3), for K1's issue floor
+K1_DIVISION_INSTRUCTIONS = 13
+
+
+def k1_division_floor_ms(N: int, L: int, B: int, clock_mhz: float) -> float:
+    """The issue floor of K1's exact divisions at N > 8, counted from the
+    algorithm (not read from the SASS): each of the N roots takes the
+    midpoint's and ``WIDE_BISECT`` sums of N divisions, two Newton steps
+    of N reciprocals and one division, and the eigenvector's N; each
+    division ``K1_DIVISION_INSTRUCTIONS`` instructions, issued 128 lanes
+    a cycle on every SM at ``clock_mhz``."""
+    import torch
+
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    divisions = N * ((1 + K.WIDE_BISECT) * N + 2 * (N + 1) + N)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    instructions = divisions * K1_DIVISION_INSTRUCTIONS * L * B
+    return instructions / (sms * 128 * clock_mhz * 1e6) * 1e3
+
+
+def k1_extras(rec: dict, regs: dict, clock_mhz: float, N: int, L: int,
+              B: int) -> None:
+    """K1's entry at N > 8 gets its body's ptxas line and the issue floor
+    of its divisions on (L, B) elements."""
+    beam = rec["name"] == "stage1_isotropic_beam"
+    rec["ptxas"] = regs.get(f"stage1_isotropic_wide{'_beam' if beam else ''}"
+                            "<9..16>")
+    rec["issue_floor_ms"] = k1_division_floor_ms(N, L, B, clock_mhz)
+
+
 def phase19(dev, card: str, regs: dict) -> list:
     """Phase 19, 18 to 32 streams: the route, every new N against the plain
     versions, then the paths through the bodies of N = 9..16; returns the
@@ -1084,13 +1120,16 @@ def phase19(dev, card: str, regs: dict) -> list:
     from pyharp_tpu_torch.bench.problems import (bench_problem, extra_problem,
                                                  radiance_problem,
                                                  stage1_inputs)
-    from pyharp_tpu_torch.bench.roofline_run import kernel_flops
+    from pyharp_tpu_torch.bench import roofline_run as R
+    from pyharp_tpu_torch.bench.roofline_run import kernel_bytes, kernel_flops
     from pyharp_tpu_torch.rt.disort import kernels as K
     from pyharp_tpu_torch.rt.disort.legendre import lepoly
     from pyharp_tpu_torch.rt.disort.solver import make_static_angles
 
     t19 = time.perf_counter()
     kernels_json = []
+    clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"]).splitlines()[0])
     # the route: every nstr 2..32 in float32 on the card to the kernels, 34
     # raises before any launch
     assert all(K.route("auto", "cuda", torch.float32, n) == "cuda"
@@ -1173,8 +1212,8 @@ def phase19(dev, card: str, regs: dict) -> list:
     say("19", "at L 37 x B 4096 (stage 1) and 1018 columns x 8 layers "
               "(BVP): " + "; ".join(msgs) + f" ({STAGE1_TOL}; {BVP_TOL}) "
               f"[{card}]")
-    # K4's last block partial: L 37 x B 509 elements is no multiple of the
-    # 32 a block of the body at N = 9..16 takes
+    # K1's and K4's last block partial: L 37 x B 509 elements is no
+    # multiple of the 32 a block of their bodies at N = 9..16 takes
     for nstr in (18, 32):
         L, B = 37, 509
         ang = make_static_angles(nstr, nstr, 0)
@@ -1195,8 +1234,15 @@ def phase19(dev, card: str, regs: dict) -> list:
         stage1_exact(K.stage1_general(*a4, **kw),
                      K.stage1_general_plain(*a4, **kw),
                      f"K4 nstr {nstr} on {L} x {B} elements")
-    say("19", f"K4 bit-equal at nstr 18 and 32 on 37 x 509 elements (the "
-              f"last block partial) [{card}]")
+        stage1_exact(K.stage1_isotropic(ssa, dtau, btop, slope, ang),
+                     K.stage1_isotropic_plain(ssa, dtau, btop, slope, ang),
+                     f"K1 nstr {nstr} on {L} x {B} elements")
+        s1b = (ssa, dtau, btop, slope, fbeam, mur, ang)
+        stage1_exact(K.stage1_isotropic_beam(*s1b),
+                     K.stage1_isotropic_beam_plain(*s1b),
+                     f"K1 beam nstr {nstr} on {L} x {B} elements")
+    say("19", f"K1, K1 beam and K4 bit-equal at nstr 18 and 32 on 37 x 509 "
+              f"elements (the last block partial) [{card}]")
     say("19", f"{time.perf_counter() - t19:.1f} s into phase 19")
 
     # the isotropic thermal solve at nstr 32 through K1, K2, K5; the fixed
@@ -1219,6 +1265,7 @@ def phase19(dev, card: str, regs: dict) -> list:
                                       p.disort._ang0)[0][0]
     n_nan = int(torch.isnan(fixed).sum())
     recs = thermal_records(path, res[0], pr, md, p.disort._ang0, once=True)
+    k1_extras(recs[0], regs, clock_mhz, 16, pr["L"], pr["B"])
     say("19", flux_line(f"isotropic thermal {path}", res, card)
               + f"; N <= 8's fixed secular schedule on the same inputs in "
               f"float32: {n_nan} of {fixed.numel()} entries of gp NaN; per "
@@ -1247,12 +1294,76 @@ def phase19(dev, card: str, regs: dict) -> list:
         near = resonance_margin(md) < RESONANCE_MARGIN
         recs = beam_records(label, res[0], pr, md, p.disort._ang0, near=near,
                             once=True)
+        if recs[0]["name"] == "stage1_isotropic_beam":
+            k1_extras(recs[0], regs, clock_mhz, 16, pr["L"], pr["B"])
         say("19", flux_line(label, res, card) + "; per kernel: "
                   + records_line(recs)
                   + f"; {time.perf_counter() - t19:.1f} s into phase 19")
         kernels_json += recs
         del p, pr, md, recs
         torch.cuda.empty_cache()
+
+    # K1 alone at the full widths of its configurations at nstr 32:
+    # bench.py's 8 x 8192 x 100 (thermal) and sw_lbl's 500 x 512 x 40
+    # (beam), gp and gm 6.7 and 10.5 GB each; bit-equal to the plain
+    # version on every 10th wave (the columns are wave-major), which the
+    # plain K2 does not reach
+    full = []
+    for label, make, beam in (
+            ("bench 8x8192x100 nstr 32",
+             lambda: bench_problem(8, 8192, 100, 32, torch.float32, dev,
+                                   "cuda"), False),
+            ("sw_lbl 500x512x40 nstr 32",
+             lambda: extra_problem(500, 512, 40, 32, beam=True, device=dev,
+                                   kernel="cuda"), True)):
+        p = make()
+        ds = p.disort
+        pr = ds._prepare(*p.args)
+        L, B = pr["L"], pr["B"]
+        nw, ncol = ds.options.nwave, ds.options.ncol
+        ins = [pr["ssa_s"], pr["dtau"], pr["b_top_lay"], pr["slope"]]
+        if beam:
+            ins += [pr["fbeam"], ds._beam_cosine(pr)]
+        fn = K.stage1_isotropic_beam if beam else K.stage1_isotropic
+        plain = (K.stage1_isotropic_beam_plain if beam
+                 else K.stage1_isotropic_plain)
+        K.reset_launches()
+        got = fn(*ins, ds._ang0)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()[fn.__name__]
+        assert launches == 1, (label, K.launch_counts())
+        waves = torch.arange(0, nw, 10, device=dev)
+
+        def tenth(x):
+            """x's every 10th wave on its last (column) axis"""
+            lead = x.shape[:-1]
+            return x.reshape(*lead, nw, ncol).index_select(
+                -2, waves).reshape(*lead, -1).contiguous()
+
+        sub = [tenth(x) for x in ins]
+        stage1_exact([tenth(x) for x in got], plain(*sub, ds._ang0),
+                     f"K1{' beam' if beam else ''} {label}, every 10th wave")
+        del got
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fn(*ins, ds._ang0), 3)
+        name = fn.__name__
+        nbytes = kernel_bytes(name, 16, L, B)
+        bound_ms, bound_by = R.bound(nbytes, kernel_flops(name, 16, L, B))
+        rec = dict(name=name, path=label, launches=launches, ms=ms,
+                   bound_ms=bound_ms, bound_by=bound_by, elements=L * B,
+                   checked_waves=len(waves))
+        k1_extras(rec, regs, clock_mhz, 16, L, B)
+        full.append(rec)
+        del p, ds, pr, ins, sub
+        torch.cuda.empty_cache()
+    say("19", "K1 alone at full width, bit-equal to its plain version on "
+              "every 10th wave: " + "; ".join(
+                  f"{r['name']} on {r['path']} ({r['elements']} elements, "
+                  f"{r['checked_waves']} waves checked) {r['ms']:.3f} ms, "
+                  f"bound {r['bound_ms']:.3f} ms by {r['bound_by']} "
+                  f"({r['bound_ms'] / r['ms']:.1%}), division issue floor "
+                  f"{r['issue_floor_ms']:.3f} ms" for r in full)
+              + f"; {time.perf_counter() - t19:.1f} s into phase 19 [{card}]")
 
     # the configuration of this slice: aerosol_16str_beam at nstr 32, full
     # width (gp, gm 2.6 GB each, P 5.2 GB); float64 on every 10th wave

@@ -32,31 +32,26 @@ from .quadrature import gauss_half_range
 
 
 def _umm(a: Tensor, b: Tensor) -> Tensor:
-    """Unrolled tiny matmul: (N, K, ...) x (K, M, ...) -> (N, M, ...)."""
-    N, K = a.shape[0], a.shape[1]
-    M = b.shape[1]
-    rows = []
-    for i in range(N):
-        cols = []
-        for j in range(M):
-            acc = a[i, 0] * b[0, j]
-            for k in range(1, K):
-                acc = acc + a[i, k] * b[k, j]
-            cols.append(acc)
-        rows.append(torch.stack(cols, dim=0))
-    return torch.stack(rows, dim=0)
+    """Unrolled tiny matmul: (N, K, ...) x (K, M, ...) -> (N, M, ...).
+
+    Every entry is summed over k in order, ``a[i, 0] b[0, j] + a[i, 1]
+    b[1, j] + ...``, each product and each sum rounded; all (i, j) entries
+    go together, one tensor operation a product or a sum."""
+    K = a.shape[1]
+    acc = a[:, 0, None] * b[None, 0]
+    for k in range(1, K):
+        acc = acc + a[:, k, None] * b[None, k]
+    return acc
 
 
 def _umv(a: Tensor, v: Tensor) -> Tensor:
-    """Unrolled tiny matrix-vector: (N, K, ...) x (K, ...) -> (N, ...)."""
-    N, K = a.shape[0], a.shape[1]
-    rows = []
-    for i in range(N):
-        acc = a[i, 0] * v[0]
-        for k in range(1, K):
-            acc = acc + a[i, k] * v[k]
-        rows.append(acc)
-    return torch.stack(rows, dim=0)
+    """Unrolled tiny matrix-vector: (N, K, ...) x (K, ...) -> (N, ...),
+    summed over k in order as :func:`_umm`."""
+    K = a.shape[1]
+    acc = a[:, 0] * v[0][None]
+    for k in range(1, K):
+        acc = acc + a[:, k] * v[k][None]
+    return acc
 
 
 def _uwdot_static(w: np.ndarray, x: Tensor) -> Tensor:

@@ -1,21 +1,26 @@
-"""Time K4 and K2 at N = 16 (nstr 32) against another tree's bodies, in
-turns, on the card.
+"""Time K1, K4 and K2 at N = 16 (nstr 32) against another tree's bodies,
+in turns, on the card.
 
     git archive <commit> pyharp_tpu_torch/rt/disort/csrc | tar -x -C _checkout/parent
     python3 tools/wide_ab.py --parent _checkout/parent
 
 Builds this tree's kernel library (``kernels.build``) and, in parallel,
-the parent tree's ``stage1_general_wide.cu`` and ``bvp_forward_wide.cu``
-into a library of their own, and prints each body's ptxas report.  Then,
-on the inputs of aerosol_32str_beam (500 x 128 x 40, nstr 32, HG g = 0.8,
-a beam: K4 once, K2 once) and of the radiances at nstr 32 (32 x 64 x 40:
-K4 at each of the 32 modes, K2 on the 31 folded modes), it checks the
-parent's bodies against this tree's (K4 bit-equal, K2 within the BVP
-bound ``|err| <= 3e-5 max|ref| + 3e-4 |ref|``) and times each over
+the parent tree's ``stage1_isotropic_wide.cu``, ``stage1_general_wide.cu``
+and ``bvp_forward_wide.cu`` into libraries of their own, and prints each
+body's ptxas report.  Then it checks the parent's bodies against this
+tree's (K1 and K4 bit-equal, K2 within the BVP bound ``|err| <= 3e-5
+max|ref| + 3e-4 |ref|``) and times each over
 ``--reps`` calls with CUDA events, in the order parent, this tree, this
-tree, parent.  K4 is also timed without its Jacobi sweeps.  One JSON line
-goes to stdout and to ``wide_ab.json`` in ``--out-dir`` (the build
-directory by default).  Needs a CUDA card; raises without one.
+tree, parent: K1 on the isotropic thermal solve of bench.py's widths at
+20 layers (8 x 2048 x 20, nstr 32) and its beam variant on the isotropic
+beam solve (500 x 64 x 20, nstr 32), the two K1 shapes of
+``chip_smoke.py`` phase 19; K4 and K2 on the inputs of
+aerosol_32str_beam (500 x 128 x 40, nstr 32, HG g = 0.8, a beam: K4
+once, K2 once) and of the radiances at nstr 32 (32 x 64 x 40: K4 at
+each of the 32 modes, K2 on the 31 folded modes).  K4 is also timed
+without its Jacobi sweeps.  One JSON line goes to stdout and to
+``wide_ab.json`` in ``--out-dir`` (the build directory by default).
+Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-WIDE = {"stage1_general_wide.cu": "pyharp_stage1_general_wide",
+WIDE = {"stage1_isotropic_wide.cu": "pyharp_stage1_isotropic_wide",
+        "stage1_general_wide.cu": "pyharp_stage1_general_wide",
         "bvp_forward_wide.cu": "pyharp_bvp_forward_wide"}
 
 
@@ -73,7 +79,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("wide_ab: needs a CUDA card")
     from chip_smoke import bvp_check, cuda_ms, ptxas_summary, run
-    from pyharp_tpu_torch.bench.problems import extra_problem, radiance_problem
+    from pyharp_tpu_torch.bench.problems import (bench_problem, extra_problem,
+                                                 radiance_problem)
     from pyharp_tpu_torch.rt.disort import kernels as K
     from pyharp_tpu_torch.rt.disort.legendre import lepoly
 
@@ -81,24 +88,24 @@ def main() -> None:
                 "--format=csv,noheader"]).splitlines()[0]
     build_dir = REPO / "pyharp_tpu_torch" / "_build" / "ab"
     procs = {}
-    for src in WIDE:
+    for src, entry in WIDE.items():
         so = build_dir / f"parent_{Path(src).stem}.so"
-        procs[src] = (so, start_build(
+        procs[src] = (so, entry, start_build(
             K, args.parent / "pyharp_tpu_torch/rt/disort/csrc" / src, so))
     t0 = time.perf_counter()
     lib = K.build()
     regs = {f"new:{k}": v for k, v in ptxas_summary(lib.ptxas_log).items()
             if "wide" in k}
     entries = {}
-    for src, (so, proc) in procs.items():
+    for src, (so, entry, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the parent's {src}:\n{log}")
         regs.update({f"parent:{k}": v for k, v in ptxas_summary(log).items()})
-        fn = getattr(ctypes.CDLL(str(so)), WIDE[src])
-        fn.argtypes = K._SIGNATURES[WIDE[src]]
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes = K._SIGNATURES[entry]
         fn.restype = ctypes.c_int
-        entries[WIDE[src]] = fn
+        entries[entry] = fn
     print(f"built in {time.perf_counter() - t0:.1f} s; ptxas: {regs}",
           flush=True)
     libs = {"new": lib, "parent": Swapped(lib, entries)}
@@ -117,6 +124,30 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     res = {"card": card, "ptxas": regs, "reps": args.reps}
+
+    # K1 on phase 19's isotropic thermal and beam solves at nstr 32
+    use("new")
+    p = bench_problem(8, 2048, 20, 32, torch.float32, dev, "cuda")
+    pr = p.disort._prepare(*p.args)
+    s1 = (pr["ssa_s"], pr["dtau"], pr["b_top_lay"], pr["slope"])
+    k1 = lambda: K.stage1_isotropic(*s1, p.disort._ang0)
+    pb = extra_problem(500, 64, 20, 32, beam=True, device=dev,
+                       kernel="cuda")
+    prb = pb.disort._prepare(*pb.args)
+    s1b = (prb["ssa_s"], prb["dtau"], prb["b_top_lay"], prb["slope"],
+           prb["fbeam"], pb.disort._beam_cosine(prb))
+    k1b = lambda: K.stage1_isotropic_beam(*s1b, pb.disort._ang0)
+    refs = (k1(), k1b())
+    use("parent")
+    for what, fn, ref in (("thermal", k1, refs[0]),
+                          ("beam", k1b, refs[1])):
+        assert all(torch.equal(a, b) for a, b in zip(fn(), ref)), (
+            f"K1 {what} of the parent differs from this tree's")
+    del refs
+    timed("k1_thermal_8x2048x20", k1)
+    timed("k1_beam_500x64x20", k1b)
+    del p, pr, s1, pb, prb, s1b
+    torch.cuda.empty_cache()
 
     # aerosol_32str_beam
     p = extra_problem(500, 128, 40, 32, g=0.8, device=dev, kernel="cuda")
