@@ -1121,7 +1121,7 @@ def phase19(dev, card: str, regs: dict) -> list:
                                                  radiance_problem,
                                                  stage1_inputs)
     from pyharp_tpu_torch.bench import roofline_run as R
-    from pyharp_tpu_torch.bench.roofline_run import kernel_bytes, kernel_flops
+    from pyharp_tpu_torch.bench.roofline_run import kernel_flops
     from pyharp_tpu_torch.rt.disort import kernels as K
     from pyharp_tpu_torch.rt.disort.legendre import lepoly
     from pyharp_tpu_torch.rt.disort.solver import make_static_angles
@@ -1347,7 +1347,7 @@ def phase19(dev, card: str, regs: dict) -> list:
         torch.cuda.empty_cache()
         ms = cuda_ms(lambda: fn(*ins, ds._ang0), 3)
         name = fn.__name__
-        nbytes = kernel_bytes(name, 16, L, B)
+        nbytes = R.kernel_bytes(name, 16, L, B)
         bound_ms, bound_by = R.bound(nbytes, kernel_flops(name, 16, L, B))
         rec = dict(name=name, path=label, launches=launches, ms=ms,
                    bound_ms=bound_ms, bound_by=bound_by, elements=L * B,
