@@ -442,8 +442,6 @@ def records_line(recs) -> str:
     return "; ".join(
         f"{r['name']} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
         f"{r['bound_ms']:.3f} ms by {r['bound_by']}"
-        + (f", division issue floor {r['issue_floor_ms']:.3f} ms"
-           if "issue_floor_ms" in r else "")
         + (f", ptxas {r['ptxas']}" if "ptxas" in r else "")
         + f", max|err|/max|ref| {r['max_rel_err']:.2e}, {r['tolerance']})"
         for r in recs)
@@ -1085,8 +1083,9 @@ K1_DIVISION_INSTRUCTIONS = 13
 
 
 def k1_division_floor_ms(N: int, L: int, B: int, clock_mhz: float) -> float:
-    """The issue floor of K1's exact divisions at N > 8, counted from the
-    algorithm (not read from the SASS): each of the N roots takes the
+    """The issue floor of K1's exact divisions at N > 8, an estimate from
+    the algorithm (not read from the SASS, and not measured; printed beside
+    K1's times, kept out of the ``kernels`` line): each of the N roots takes the
     midpoint's and ``WIDE_BISECT`` sums of N divisions, two Newton steps
     of N reciprocals and one division, and the eigenvector's N; each
     division ``K1_DIVISION_INSTRUCTIONS`` instructions, issued 128 lanes
@@ -1101,14 +1100,17 @@ def k1_division_floor_ms(N: int, L: int, B: int, clock_mhz: float) -> float:
     return instructions / (sms * 128 * clock_mhz * 1e6) * 1e3
 
 
-def k1_extras(rec: dict, regs: dict, clock_mhz: float, N: int, L: int,
-              B: int) -> None:
-    """K1's entry at N > 8 gets its body's ptxas line and the issue floor
-    of its divisions on (L, B) elements."""
+def k1_ptxas(rec: dict, regs: dict) -> None:
+    """K1's entry at N > 8 gets its body's ptxas line from phase 1."""
     beam = rec["name"] == "stage1_isotropic_beam"
     rec["ptxas"] = regs.get(f"stage1_isotropic_wide{'_beam' if beam else ''}"
                             "<9..16>")
-    rec["issue_floor_ms"] = k1_division_floor_ms(N, L, B, clock_mhz)
+
+
+def k1_floor_text(N: int, L: int, B: int, clock_mhz: float) -> str:
+    return (f"K1's division issue floor, estimated from the algorithm at "
+            f"{clock_mhz:.0f} MHz (not measured): "
+            f"{k1_division_floor_ms(N, L, B, clock_mhz):.3f} ms")
 
 
 def phase19(dev, card: str, regs: dict) -> list:
@@ -1265,11 +1267,12 @@ def phase19(dev, card: str, regs: dict) -> list:
                                       p.disort._ang0)[0][0]
     n_nan = int(torch.isnan(fixed).sum())
     recs = thermal_records(path, res[0], pr, md, p.disort._ang0, once=True)
-    k1_extras(recs[0], regs, clock_mhz, 16, pr["L"], pr["B"])
+    k1_ptxas(recs[0], regs)
     say("19", flux_line(f"isotropic thermal {path}", res, card)
               + f"; N <= 8's fixed secular schedule on the same inputs in "
               f"float32: {n_nan} of {fixed.numel()} entries of gp NaN; per "
-              "kernel: " + records_line(recs)
+              "kernel: " + records_line(recs) + "; "
+              + k1_floor_text(16, pr["L"], pr["B"], clock_mhz)
               + f"; {time.perf_counter() - t19:.1f} s into phase 19")
     kernels_json += recs
     del p, pr, md, fixed, recs
@@ -1294,10 +1297,12 @@ def phase19(dev, card: str, regs: dict) -> list:
         near = resonance_margin(md) < RESONANCE_MARGIN
         recs = beam_records(label, res[0], pr, md, p.disort._ang0, near=near,
                             once=True)
+        floor = ""
         if recs[0]["name"] == "stage1_isotropic_beam":
-            k1_extras(recs[0], regs, clock_mhz, 16, pr["L"], pr["B"])
+            k1_ptxas(recs[0], regs)
+            floor = "; " + k1_floor_text(16, pr["L"], pr["B"], clock_mhz)
         say("19", flux_line(label, res, card) + "; per kernel: "
-                  + records_line(recs)
+                  + records_line(recs) + floor
                   + f"; {time.perf_counter() - t19:.1f} s into phase 19")
         kernels_json += recs
         del p, pr, md, recs
@@ -1352,7 +1357,8 @@ def phase19(dev, card: str, regs: dict) -> list:
         rec = dict(name=name, path=label, launches=launches, ms=ms,
                    bound_ms=bound_ms, bound_by=bound_by, elements=L * B,
                    checked_waves=len(waves))
-        k1_extras(rec, regs, clock_mhz, 16, L, B)
+        k1_ptxas(rec, regs)
+        rec["floor"] = k1_floor_text(16, L, B, clock_mhz)
         full.append(rec)
         del p, ds, pr, ins, sub
         torch.cuda.empty_cache()
@@ -1361,8 +1367,8 @@ def phase19(dev, card: str, regs: dict) -> list:
                   f"{r['name']} on {r['path']} ({r['elements']} elements, "
                   f"{r['checked_waves']} waves checked) {r['ms']:.3f} ms, "
                   f"bound {r['bound_ms']:.3f} ms by {r['bound_by']} "
-                  f"({r['bound_ms'] / r['ms']:.1%}), division issue floor "
-                  f"{r['issue_floor_ms']:.3f} ms" for r in full)
+                  f"({r['bound_ms'] / r['ms']:.1%}), ptxas {r['ptxas']}, "
+                  f"{r['floor']}" for r in full)
               + f"; {time.perf_counter() - t19:.1f} s into phase 19 [{card}]")
 
     # the configuration of this slice: aerosol_16str_beam at nstr 32, full

@@ -3,6 +3,13 @@
 lane by lane, held to the bits of the plain versions
 ``kernels.stage1_isotropic_plain`` and ``stage1_isotropic_beam_plain``.
 
+Each sum of a root is formed as the body forms it: over all kNMax = 16
+terms, the table padded past N (c = 0, differences 2^30), the pole's term
+of s f taken as s / s, each quotient by numpy's ``/`` in place of the
+body's ``quotient`` (the same correctly rounded result inside its range),
+and the sum taken again over i < N with ``/`` and the pole's select where
+s or a divisor leaves [2^-60, 2^60].
+
 The body gives each (layer, column) element a team of G = 4 lanes.  Lane
 t finds the roots k = t, t + 4, t + 8, t + 12 (k < N), each by the plain
 version's operations in its order (``root``), and stores the columns k of
@@ -25,6 +32,8 @@ numpy's need not match.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +50,8 @@ NMAX = 16
 G = 4
 SLOTS = NMAX // G
 TWO_KAPPA = F32(2.0 * (1.0 / (4.0 * 3.141592653589793)))
+LO, HI = F32(2.0 ** -60), F32(2.0 ** 60)    # the range of `quotient`
+PAD = F32(2.0 ** 30)                         # dlt past n
 
 
 def sqrt32(x):
@@ -67,25 +78,138 @@ def tables(ang):
     return get
 
 
-def s_f(tau, s, dlt, pole, n, ssa, c):
-    """s - ssa sum_i c_i v_i, v_i = s / (dlt_i - tau), 1 on the pole."""
+def in_range(x):
+    """|x| within [2^-60, 2^60], where the body's quotients are exact."""
+    a = np.abs(x)
+    return (a >= LO) & (a <= HI)
+
+
+def pad(dlt, c, n):
+    """A root's differences and c over all kNMax terms, as the body holds
+    them: dlt = 2^30 and c = 0 past n."""
+    d16 = np.full((NMAX,) + dlt.shape[1:], PAD, F32)
+    d16[:n] = dlt[:n]
+    c16 = np.zeros(NMAX, F32)
+    c16[:n] = c[:n]
+    return d16, c16
+
+
+def count(stats, key, ok):
+    """Tally the elements of a sum that took the fast path and those that
+    fell back to ``/``."""
+    if stats is not None:
+        stats[key + "_fast"] += int(ok.sum())
+        stats[key + "_fallback"] += int((~ok).sum())
+
+
+def sf_sum_plain(tau, s, dlt, pole, n, c):
+    """sum_i c_i v_i over i < n, v_i = s / (dlt_i - tau), 1 on the pole."""
     acc = None
     for i in range(n):
-        with np.errstate(all="ignore"):
-            v = np.where(pole == i, F32(1.0), s / (dlt[i] - tau))
+        v = np.where(pole == i, F32(1.0), s / (dlt[i] - tau))
         acc = c[0] * v if i == 0 else acc + c[i] * v
+    return acc
+
+
+def s_f(tau, s, dlt, pole, n, ssa, c, stats=None, key="bisect"):
+    """s - ssa sum_i c_i v_i as the body forms it (``sf_sum``): all kNMax
+    terms with the padded table and no select on the pole (there s / s =
+    1), each quotient exact (numpy's ``/`` for the body's ``quotient``)
+    where s and every divisor lie in [2^-60, 2^60]; where one does not,
+    the sum again over i < n with ``/`` and the pole's select."""
+    d16, c16 = pad(dlt, c, n)
+    with np.errstate(all="ignore"):
+        acc = None
+        lo = np.full(np.shape(tau), HI, F32)
+        hi = np.zeros(np.shape(tau), F32)
+        for i in range(NMAX):
+            b = d16[i] - tau
+            lo = np.fmin(lo, np.abs(b))
+            hi = np.fmax(hi, np.abs(b))
+            v = s / b
+            acc = c16[0] * v if i == 0 else acc + c16[i] * v
+        ok = in_range(s) & (lo >= LO) & (hi <= HI)
+        count(stats, key, ok)
+        acc = np.where(ok, acc, sf_sum_plain(tau, s, dlt, pole, n, c))
     return s - ssa * acc
 
 
-def root(k, n, ssa, tb):
+def newton_sums(tau, dlt, n, c, stats=None):
+    """fs = sum_i c_i u_i and fps = sum_i c_i u_i^2, u_i = 1 / (tau -
+    dlt_i), as the body forms them (``newton_sums``): all kNMax terms,
+    the padded ones adding zeros, and again over i < n with ``/`` where a
+    divisor leaves [2^-60, 2^60]."""
+    d16, c16 = pad(dlt, c, n)
+
+    def sums(m, d, cc):
+        fs = fps = None
+        lo = np.full(np.shape(tau), HI, F32)
+        hi = np.zeros(np.shape(tau), F32)
+        for i in range(m):
+            b = tau - d[i]
+            lo = np.fmin(lo, np.abs(b))
+            hi = np.fmax(hi, np.abs(b))
+            u = F32(1.0) / b
+            cu = cc[i] * u
+            fs = cu if i == 0 else fs + cu
+            fps = cu * u if i == 0 else fps + cu * u
+        return fs, fps, (lo >= LO) & (hi <= HI)
+
+    with np.errstate(all="ignore"):
+        fs, fps, ok = sums(NMAX, d16, c16)
+        count(stats, "newton", ok)
+        pfs, pfps, _ = sums(n, dlt, c)
+    return np.where(ok, fs, pfs), np.where(ok, fps, pfps)
+
+
+def eigenvector(tau, s, sk, invlam, dlt, pole, n, invmu, stats=None):
+    """Columns k of gp and gm before their normalisation and their max, as
+    the body forms them (``eigenvector``): all kNMax terms, 1/mu = 0 past
+    n, the max over i < n; again over i < n with ``/`` where s or a
+    divisor off the pole leaves [2^-60, 2^60]."""
+    d16, _ = pad(dlt, np.zeros(n, F32), n)
+    im16 = np.zeros(NMAX, F32)
+    im16[:n] = invmu
+
+    def columns(m, d, fast):
+        gpk, gmk = [], []
+        mx = None
+        ok = in_range(s)
+        for i in range(m):
+            b = d[i] - tau
+            if fast:
+                ok = ok & (in_range(b) | (pole == i) | (i >= n))
+            v = np.where(pole == i, F32(1.0), s / b)
+            D = im16[i] * (sk * v)
+            si = -D * im16[i] * invlam
+            gpk.append(F32(0.5) * (si + D))
+            gmk.append(F32(0.5) * (si - D))
+            mm = np.abs(gpk[0]) if i == 0 else mx
+            mm = np.fmax(mm, np.abs(gpk[i]))
+            mm = np.fmax(mm, np.abs(gmk[i]))
+            mx = mm if i < n else mx
+        return np.stack(gpk[:n]), np.stack(gmk[:n]), mx, ok
+
+    with np.errstate(all="ignore"):
+        gp16, gm16, mx16, ok = columns(NMAX, d16, True)
+        count(stats, "eigenvector", ok)
+        gpn, gmn, mxn, _ = columns(n, dlt, False)
+    return (np.where(ok, gp16, gpn), np.where(ok, gm16, gmn),
+            np.where(ok, mx16, mxn))
+
+
+def root(k, n, ssa, tb, stats=None):
     """Root k of every element as lane k % G finds it: x_k, its lam and
-    the normalised columns k of gp and gm, ``(n, E)`` each."""
+    the normalised columns k of gp and gm, ``(n, E)`` each.  ``stats``
+    tallies the sums that took the fast path and the fallback, the
+    bisection's first step apart."""
     E = ssa.shape[0]
     c = tb["c"]
     h = np.full(E, tb["half"][k], F32)
     du = np.repeat(tb["delta"][k + 1][:, None], E, axis=1)
     dl = np.repeat(tb["delta"][k][:, None], E, axis=1)
-    up = s_f(-h, h, du, np.full(E, n - 1 - k), n, ssa, c) > 0.0
+    up = s_f(-h, h, du, np.full(E, n - 1 - k), n, ssa, c, stats,
+             "midpoint") > 0.0
     dlt = np.where(up[None], du, dl)
     pole = np.where(up, n - 1 - k, n - k)
     flip = ~up & (k > 0)
@@ -93,11 +217,12 @@ def root(k, n, ssa, tb):
     sgn = np.where(up, F32(-1.0), F32(1.0))
     lo = np.zeros(E, np.int32)
     hi = h.view(np.int32).copy()
-    for _ in range(K.WIDE_BISECT):
+    for it in range(K.WIDE_BISECT):
         m = lo + ((hi - lo) >> 1)
         tau = sgn * m.view(F32)
         s = np.where(zero, F32(1.0), -tau)
-        g = s_f(tau, s, dlt, pole, n, ssa, c)
+        g = s_f(tau, s, dlt, pole, n, ssa, c, stats,
+                "bisect_first" if it == 0 else "bisect")
         pos = np.where(flip, g < 0.0, g > 0.0)
         grow = pos != up
         lo = np.where(grow, m, lo)
@@ -108,12 +233,7 @@ def root(k, n, ssa, tb):
     tau = sgn * (lo + ((hi - lo) >> 1)).view(F32)
     with np.errstate(all="ignore"):
         for _ in range(2):
-            fs = fps = None
-            for i in range(n):
-                u = F32(1.0) / (tau - dlt[i])
-                cu = c[i] * u
-                fs = cu if i == 0 else fs + cu
-                fps = cu * u if i == 0 else fps + cu * u
+            fs, fps = newton_sums(tau, dlt, n, c, stats)
             f = F32(1.0) + ssa * fs
             fp = -ssa * fps
             fp_safe = np.where(fp < F32(-1e-30), fp, F32(-1e-30))
@@ -126,21 +246,10 @@ def root(k, n, ssa, tb):
     sk = np.where(flip, F32(-1.0), F32(1.0)) * (F32(-1.0) if k & 1 else F32(1.0))
     lamk = sqrt32(np.where(xk < F32(1e-12), F32(1e-12), xk))
     invlam = F32(1.0) / lamk
-    gpk, gmk = [], []
-    mx = None
-    for i in range(n):
-        with np.errstate(all="ignore"):
-            v = np.where(pole == i, F32(1.0), s / (dlt[i] - tau))
-        invmu = tb["invmu"][i]
-        D = invmu * (sk * v)
-        si = -D * invmu * invlam
-        gpk.append(F32(0.5) * (si + D))
-        gmk.append(F32(0.5) * (si - D))
-        mx = np.abs(gpk[0]) if i == 0 else mx
-        mx = np.fmax(mx, np.abs(gpk[i]))
-        mx = np.fmax(mx, np.abs(gmk[i]))
+    gpk, gmk, mx = eigenvector(tau, s, sk, invlam, dlt, pole, n,
+                               tb["invmu"], stats)
     inv = F32(1.0) / np.fmax(mx, F32(1e-30))
-    return xk, lamk, np.stack(gpk) * inv, np.stack(gmk) * inv
+    return xk, lamk, gpk * inv, gmk * inv
 
 
 def team_lu(S, rhs):
@@ -192,9 +301,9 @@ def team_lu(S, rhs):
     return bv[:n]
 
 
-def k1_team(ssa, dtau, btop, slope, ang, fbeam=None, mur=None):
+def k1_team(ssa, dtau, btop, slope, ang, fbeam=None, mur=None, stats=None):
     """The body's outputs, ``(gp, gm, lam, expd, y0p, y0m, y1[, zp, zm])``
-    in the plain version's shapes."""
+    in the plain version's shapes; ``stats`` as :func:`root`'s."""
     n = ang.mu.shape[0]
     L, B = ssa.shape
     E = L * B
@@ -208,7 +317,8 @@ def k1_team(ssa, dtau, btop, slope, ang, fbeam=None, mur=None):
         for s in range(SLOTS):
             k = s * G + t
             if k < n:
-                xs[k], lam[k], gp[:, k], gm[:, k] = root(k, n, ssa_e, tb)
+                xs[k], lam[k], gp[:, k], gm[:, k] = root(k, n, ssa_e, tb,
+                                                         stats)
     expd = exp32(-lam * dtau.reshape(E))
     mu = tb["mu"]
     sl, bt = slope.reshape(E), btop.reshape(E)
@@ -302,6 +412,27 @@ def test_team_body_is_the_plain_k1(nstr, beam):
     names = ("gp", "gm", "lam", "expd", "y0p", "y0m", "y1", "zp", "zm")
     bad = [nm for nm, g, w in zip(names, got, want) if not same_bits(g, w)]
     assert not bad, f"nstr {nstr}: {bad} differ from the plain version"
+
+
+@pytest.mark.parametrize("nstr", [18, 32])
+def test_range_fallback_is_taken_and_keeps_the_bits(nstr):
+    """Both ways through the body's sums, in one draw: the bisection's
+    first midpoint is half the bits of the bracket's half width, below
+    2^-60 for most roots, so that step falls back to ``/``; on ssa = 0
+    every root's tau goes to 0, so its last steps, its Newton sums (the
+    pole's divisor) and its eigenvector (s) fall back too.  The beam
+    variant's outputs stay the plain version's bits."""
+    ang, ssa, dtau, btop, slope, fbeam, mur = _inputs(nstr, 2, 5, 7 + nstr)
+    stats = Counter()
+    got = k1_team(ssa.numpy(), dtau.numpy(), btop.numpy(), slope.numpy(),
+                  ang, fbeam.numpy(), mur.numpy(), stats=stats)
+    want = K.stage1_isotropic_beam_plain(ssa, dtau, btop, slope, fbeam, mur,
+                                         ang)
+    assert all(same_bits(g, w) for g, w in zip(got, want))
+    for key in ("bisect_first", "bisect", "newton", "eigenvector"):
+        assert stats[key + "_fallback"] > 0, (key, stats)
+    for key in ("midpoint", "bisect", "newton", "eigenvector"):
+        assert stats[key + "_fast"] > 0, (key, stats)
 
 
 def tied_system(n: int, E: int, seed: int):

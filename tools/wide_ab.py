@@ -1,78 +1,83 @@
-"""Time K1, K4 and K2 at N = 16 (nstr 32) against another tree's bodies,
-in turns, on the card.
+"""Time K1, K4 and K2 at N = 16 (nstr 32), the solve steps they run in,
+and the plain LU against another tree's, in turns, on the card.
 
-    git archive <commit> pyharp_tpu_torch/rt/disort/csrc | tar -x -C _checkout/parent
+    git archive <commit> pyharp_tpu_torch/rt/disort | tar -x -C _checkout/parent
     python3 tools/wide_ab.py --parent _checkout/parent
 
-Builds this tree's kernel library (``kernels.build``) and, in parallel,
-the parent tree's ``stage1_isotropic_wide.cu``, ``stage1_general_wide.cu``
-and ``bvp_forward_wide.cu`` into libraries of their own, and prints each
-body's ptxas report.  Then it checks the parent's bodies against this
-tree's (K1 and K4 bit-equal, K2 within the BVP bound ``|err| <= 3e-5
-max|ref| + 3e-4 |ref|``) and times each over
-``--reps`` calls with CUDA events, in the order parent, this tree, this
-tree, parent: K1 on the isotropic thermal solve of bench.py's widths at
-20 layers (8 x 2048 x 20, nstr 32) and its beam variant on the isotropic
-beam solve (500 x 64 x 20, nstr 32), the two K1 shapes of
-``chip_smoke.py`` phase 19; K4 and K2 on the inputs of
-aerosol_32str_beam (500 x 128 x 40, nstr 32, HG g = 0.8, a beam: K4
-once, K2 once) and of the radiances at nstr 32 (32 x 64 x 40: K4 at
-each of the 32 modes, K2 on the 31 folded modes).  K4 is also timed
-without its Jacobi sweeps.  One JSON line goes to stdout and to
-``wide_ab.json`` in ``--out-dir`` (the build directory by default).
-Needs a CUDA card; raises without one.
+Builds this tree's kernel library and the other tree's (``--parent``)
+with the same ``kernels.build``, in parallel, each into a library of its
+own, and prints the ptxas report of their bodies at N = 9..16.  With
+``--parent .`` the two libraries are built from the same sources, which
+times the tool against itself.  Each part times its calls over
+``--reps`` calls with CUDA events, in turns:
+
+- ``kernels``, in the order parent, this tree, this tree, parent, after
+  checking the parent's library against this tree's (K1 and K4 bit-equal,
+  K2 within the BVP bound ``|err| <= 3e-5 max|ref| + 3e-4 |ref|``): K1 on
+  the isotropic thermal solve of bench.py's widths at 20 layers (8 x 2048
+  x 20, nstr 32) and its beam variant on the isotropic beam solve (500 x
+  64 x 20, nstr 32), the two K1 shapes of ``chip_smoke.py`` phase 19; K4
+  and K2 on the inputs of aerosol_32str_beam (500 x 128 x 40, nstr 32, HG
+  g = 0.8, a beam: K4 once, K2 once; K4 also without its Jacobi sweeps)
+  and of the radiances at nstr 32 (32 x 64 x 40: K4 at each of the 32
+  modes, K2 on the 31 folded modes).
+- ``steps``: the solve steps whose glue calls ``solver._umv`` (the node
+  intensities at N > 4), each in three setups: the parent's library and
+  the parent's ``_umv`` (``parent``), this tree's library and the
+  parent's ``_umv`` (``parent_glue``), this tree's both (``new``), in the
+  order parent, parent_glue, new, new, parent_glue, parent.  So
+  parent_glue - parent is the library's share and new - parent_glue the
+  glue's.  Each setup's output is compared with this tree's, bit for bit.
+- ``plain_lu``: the plain K2 (``kernels.bvp_forward_plain``) on the
+  isotropic thermal solve's inputs at nstr 32, with the parent's
+  ``linsolve.lu_solve`` and with this tree's, in the order parent, this
+  tree, this tree, parent, once each.
+
+The parent's ``_umv`` and ``lu_solve`` are read from its ``solver.py``
+and ``linsolve.py`` and run in this tree's modules.  One JSON line goes
+to stdout and to ``wide_ab.json`` in ``--out-dir`` (the build directory
+by default).  Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
+import ast
 import json
-import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-WIDE = {"stage1_isotropic_wide.cu": "pyharp_stage1_isotropic_wide",
-        "stage1_general_wide.cu": "pyharp_stage1_general_wide",
-        "bvp_forward_wide.cu": "pyharp_bvp_forward_wide"}
+DISORT = Path("pyharp_tpu_torch/rt/disort")
+PARTS = ("kernels", "steps", "plain_lu")
 
 
-class Swapped:
-    """The kernel library with its wide entry points taken from another
-    build; the wrappers call ``build().call`` and so go through it."""
-
-    def __init__(self, base, entries: dict):
-        self.base = base
-        self.entries = entries  # entry name -> ctypes function
-
-    def call(self, name, *args):
-        fn = self.entries.get(name)
-        if fn is None:
-            return self.base.call(name, *args)
-        rc = fn(*args)
-        if rc != 0:
-            raise RuntimeError(f"{name}: kernel launch failed: {rc}")
-
-
-def start_build(K, src: Path, out: Path):
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [K._nvcc(), *K.NVCC_FLAGS, *K.SOURCES[src.name], "-shared", "-o",
-           str(out), str(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+def parent_function(path: Path, name: str, module):
+    """The function ``name`` of the source file ``path``, defined in the
+    namespace of ``module`` (this tree's counterpart of that file)."""
+    tree = ast.parse(path.read_text())
+    node = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    ns = dict(vars(module))
+    exec(compile(ast.Module([node], []), str(path), "exec"), ns)
+    return ns[name]
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated, of {', '.join(PARTS)}")
     ap.add_argument("--out-dir", type=Path,
                     default=REPO / "pyharp_tpu_torch" / "_build" / "ab")
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    assert set(parts) <= set(PARTS), parts
 
     import torch
 
@@ -81,131 +86,212 @@ def main() -> None:
     from chip_smoke import bvp_check, cuda_ms, ptxas_summary, run
     from pyharp_tpu_torch.bench.problems import (bench_problem, extra_problem,
                                                  radiance_problem)
+    from pyharp_tpu_torch.rt.disort import disort as D
     from pyharp_tpu_torch.rt.disort import kernels as K
+    from pyharp_tpu_torch.rt.disort import linsolve, solver
     from pyharp_tpu_torch.rt.disort.legendre import lepoly
 
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
-    build_dir = REPO / "pyharp_tpu_torch" / "_build" / "ab"
-    procs = {}
-    for src, entry in WIDE.items():
-        so = build_dir / f"parent_{Path(src).stem}.so"
-        procs[src] = (so, entry, start_build(
-            K, args.parent / "pyharp_tpu_torch/rt/disort/csrc" / src, so))
     t0 = time.perf_counter()
-    lib = K.build()
-    regs = {f"new:{k}": v for k, v in ptxas_summary(lib.ptxas_log).items()
-            if "wide" in k}
-    entries = {}
-    for src, (so, entry, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the parent's {src}:\n{log}")
-        regs.update({f"parent:{k}": v for k, v in ptxas_summary(log).items()})
-        fn = getattr(ctypes.CDLL(str(so)), entry)
-        fn.argtypes = K._SIGNATURES[entry]
-        fn.restype = ctypes.c_int
-        entries[entry] = fn
+    with ThreadPoolExecutor(2) as pool:
+        fut = pool.submit(K.build, args.parent / DISORT / "csrc",
+                          REPO / "pyharp_tpu_torch" / "_build" / "ab"
+                          / "parent")
+        lib = K.build()
+        plib = fut.result()
+    regs = {f"{who}:{k}": v
+            for who, lb in (("new", lib), ("parent", plib))
+            for k, v in ptxas_summary(lb.ptxas_log).items() if "wide" in k}
     print(f"built in {time.perf_counter() - t0:.1f} s; ptxas: {regs}",
           flush=True)
-    libs = {"new": lib, "parent": Swapped(lib, entries)}
-    turns = ("parent", "new", "new", "parent")
+    libs = {"new": lib, "parent": plib}
+    new_umv, new_lu = D._umv, K.lu_solve
 
     def use(name):
         K._library = libs[name]
 
-    def timed(what, fn):
+    def timed(what, fn, setups, turns, reps):
         ms = {}
         for name in turns:
-            use(name)
-            ms.setdefault(name, []).append(cuda_ms(fn, args.reps))
+            setups[name]()
+            ms.setdefault(name, []).append(cuda_ms(fn, reps))
+        setups["new"]()
         res[what] = ms
         print(f"{what}: {ms} [{card}]", flush=True)
 
+    lib_setups = {name: (lambda name=name: use(name)) for name in libs}
+    lib_turns = ("parent", "new", "new", "parent")
     dev = torch.device("cuda", 0)
-    res = {"card": card, "ptxas": regs, "reps": args.reps}
+    res = {"card": card, "ptxas": regs, "reps": args.reps,
+           "parent": str(args.parent)}
 
-    # K1 on phase 19's isotropic thermal and beam solves at nstr 32
-    use("new")
-    p = bench_problem(8, 2048, 20, 32, torch.float32, dev, "cuda")
-    pr = p.disort._prepare(*p.args)
-    s1 = (pr["ssa_s"], pr["dtau"], pr["b_top_lay"], pr["slope"])
-    k1 = lambda: K.stage1_isotropic(*s1, p.disort._ang0)
-    pb = extra_problem(500, 64, 20, 32, beam=True, device=dev,
-                       kernel="cuda")
-    prb = pb.disort._prepare(*pb.args)
-    s1b = (prb["ssa_s"], prb["dtau"], prb["b_top_lay"], prb["slope"],
-           prb["fbeam"], pb.disort._beam_cosine(prb))
-    k1b = lambda: K.stage1_isotropic_beam(*s1b, pb.disort._ang0)
-    refs = (k1(), k1b())
-    use("parent")
-    for what, fn, ref in (("thermal", k1, refs[0]),
-                          ("beam", k1b, refs[1])):
-        assert all(torch.equal(a, b) for a, b in zip(fn(), ref)), (
-            f"K1 {what} of the parent differs from this tree's")
-    del refs
-    timed("k1_thermal_8x2048x20", k1)
-    timed("k1_beam_500x64x20", k1b)
-    del p, pr, s1, pb, prb, s1b
-    torch.cuda.empty_cache()
+    if "kernels" in parts:
+        # K1 on phase 19's isotropic thermal and beam solves at nstr 32
+        use("new")
+        p = bench_problem(8, 2048, 20, 32, torch.float32, dev, "cuda")
+        pr = p.disort._prepare(*p.args)
+        s1 = (pr["ssa_s"], pr["dtau"], pr["b_top_lay"], pr["slope"])
+        k1 = lambda: K.stage1_isotropic(*s1, p.disort._ang0)
+        pb = extra_problem(500, 64, 20, 32, beam=True, device=dev,
+                           kernel="cuda")
+        prb = pb.disort._prepare(*pb.args)
+        s1b = (prb["ssa_s"], prb["dtau"], prb["b_top_lay"], prb["slope"],
+               prb["fbeam"], pb.disort._beam_cosine(prb))
+        k1b = lambda: K.stage1_isotropic_beam(*s1b, pb.disort._ang0)
+        refs = (k1(), k1b())
+        use("parent")
+        for what, fn, ref in (("thermal", k1, refs[0]),
+                              ("beam", k1b, refs[1])):
+            assert all(torch.equal(a, b) for a, b in zip(fn(), ref)), (
+                f"K1 {what} of the parent differs from this tree's")
+        del refs
+        timed("k1_thermal_8x2048x20", k1, lib_setups, lib_turns, args.reps)
+        timed("k1_beam_500x64x20", k1b, lib_setups, lib_turns, args.reps)
+        del p, pr, s1, pb, prb, s1b
+        torch.cuda.empty_cache()
 
-    # aerosol_32str_beam
-    p = extra_problem(500, 128, 40, 32, g=0.8, device=dev, kernel="cuda")
-    use("new")
-    pr = p.disort._prepare(*p.args)
-    md = p.disort._solve_mode(pr)
-    ang = p.disort._ang0
-    sol = md["sol"]
-    k4 = lambda sweeps=None: K.stage1_general(
-        pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["b_top_lay"], pr["slope"],
-        ang, thermal=False, sweeps=sweeps, fbeam=pr["fbeam"], mur=md["mur"],
-        lam0=md["lam0"])
-    k2 = lambda: K.bvp_forward(sol.gp, sol.gm, sol.expd, md["dblk"],
-                               pr["albedo"], ang)
-    ref4, ref2 = k4(), k2()
-    use("parent")
-    got = k4()
-    assert all(torch.equal(a, b) for a, b in zip(got, ref4)), (
-        "K4 of the parent differs from this tree's on aerosol_32str_beam")
-    bvp_check(k2(), ref2, "K2 of the parent on aerosol_32str_beam")
-    del got, ref4, ref2
-    timed("k4_aerosol", k4)
-    timed("k4_aerosol_0_sweeps", lambda: k4(0))
-    timed("k2_aerosol", k2)
-    del p, pr, md, sol
-    torch.cuda.empty_cache()
+        # aerosol_32str_beam
+        p = extra_problem(500, 128, 40, 32, g=0.8, device=dev, kernel="cuda")
+        use("new")
+        pr = p.disort._prepare(*p.args)
+        md = p.disort._solve_mode(pr)
+        ang = p.disort._ang0
+        sol = md["sol"]
+        k4 = lambda sweeps=None: K.stage1_general(
+            pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["b_top_lay"],
+            pr["slope"], ang, thermal=False, sweeps=sweeps,
+            fbeam=pr["fbeam"], mur=md["mur"], lam0=md["lam0"])
+        k2 = lambda: K.bvp_forward(sol.gp, sol.gm, sol.expd, md["dblk"],
+                                   pr["albedo"], ang)
+        ref4, ref2 = k4(), k2()
+        use("parent")
+        got = k4()
+        assert all(torch.equal(a, b) for a, b in zip(got, ref4)), (
+            "K4 of the parent differs from this tree's on aerosol_32str_beam")
+        bvp_check(k2(), ref2, "K2 of the parent on aerosol_32str_beam")
+        del got, ref4, ref2
+        timed("k4_aerosol", k4, lib_setups, lib_turns, args.reps)
+        timed("k4_aerosol_0_sweeps", lambda: k4(0), lib_setups, lib_turns,
+              args.reps)
+        timed("k2_aerosol", k2, lib_setups, lib_turns, args.reps)
+        del p, pr, md, sol
+        torch.cuda.empty_cache()
 
-    # the radiances at nstr 32: K4 at every mode, K2 on the folded modes
-    use("new")
-    p = radiance_problem(torch.float32, dev, "cuda", shape=(32, 64, 40, 32))
-    ds = p.disort
-    pr = ds._prepare(p.prop, p.bc, None)
-    modes = ds._modes_batched(pr)
-    fgp, fgm, fexpd, dblk, alb = modes["fold"]
-    ang0 = ds._ang0
-    zero = torch.zeros_like(pr["ssa_s"])
-    lam00 = lepoly(pr["umu0"], 0, ang0.lam_tables.shape[0] - 1).contiguous()
-    calls = [(pr["b_top_lay"], pr["slope"], ang0, lam00)] + [
-        (zero, zero, ds._angles(m), l0)
-        for m, l0 in zip(modes["ms"], modes["lam0"])]
+        # the radiances at nstr 32: K4 at every mode, K2 on the folded modes
+        use("new")
+        p = radiance_problem(torch.float32, dev, "cuda",
+                             shape=(32, 64, 40, 32))
+        ds = p.disort
+        pr = ds._prepare(p.prop, p.bc, None)
+        modes = ds._modes_batched(pr)
+        fgp, fgm, fexpd, dblk, alb = modes["fold"]
+        ang0 = ds._ang0
+        zero = torch.zeros_like(pr["ssa_s"])
+        lam00 = lepoly(pr["umu0"], 0,
+                       ang0.lam_tables.shape[0] - 1).contiguous()
+        calls = [(pr["b_top_lay"], pr["slope"], ang0, lam00)] + [
+            (zero, zero, ds._angles(m), l0)
+            for m, l0 in zip(modes["ms"], modes["lam0"])]
 
-    def k4_modes():
-        return tuple(t for bt, sl, a, l0 in calls
-                     for t in K.stage1_general(
-                         pr["ssa_s"], pr["pmom_s"], pr["dtau"], bt, sl, a,
-                         thermal=False, fbeam=pr["fbeam"], mur=modes["mur"],
-                         lam0=l0))
+        def k4_modes():
+            return tuple(t for bt, sl, a, l0 in calls
+                         for t in K.stage1_general(
+                             pr["ssa_s"], pr["pmom_s"], pr["dtau"], bt, sl,
+                             a, thermal=False, fbeam=pr["fbeam"],
+                             mur=modes["mur"], lam0=l0))
 
-    k2f = lambda: K.bvp_forward(fgp, fgm, fexpd, dblk, alb, ang0)
-    ref4, ref2 = k4_modes(), k2f()
-    use("parent")
-    got = k4_modes()
-    assert all(torch.equal(a, b) for a, b in zip(got, ref4)), (
-        "K4 of the parent differs from this tree's on the radiance modes")
-    bvp_check(k2f(), ref2, "K2 of the parent on the folded modes")
-    del got, ref4, ref2
-    timed("k4_radiance_modes", k4_modes)
-    timed("k2_folded", k2f)
+        k2f = lambda: K.bvp_forward(fgp, fgm, fexpd, dblk, alb, ang0)
+        ref4, ref2 = k4_modes(), k2f()
+        use("parent")
+        got = k4_modes()
+        assert all(torch.equal(a, b) for a, b in zip(got, ref4)), (
+            "K4 of the parent differs from this tree's on the radiance modes")
+        bvp_check(k2f(), ref2, "K2 of the parent on the folded modes")
+        del got, ref4, ref2
+        timed("k4_radiance_modes", k4_modes, lib_setups, lib_turns,
+              args.reps)
+        timed("k2_folded", k2f, lib_setups, lib_turns, args.reps)
+        del p, ds, pr, modes, fgp, fgm, fexpd, dblk, alb, calls, zero
+        torch.cuda.empty_cache()
+
+    if "steps" in parts:
+        old_umv = parent_function(args.parent / DISORT / "solver.py", "_umv",
+                                  solver)
+
+        def setup(name, umv):
+            def go():
+                use(name)
+                D._umv = umv
+            return go
+
+        setups = {"parent": setup("parent", old_umv),
+                  "parent_glue": setup("new", old_umv),
+                  "new": setup("new", new_umv)}
+        turns = ("parent", "parent_glue", "new", "new", "parent_glue",
+                 "parent")
+        for what, make, radiances in (
+                ("step_iso_thermal_8x2048x20_nstr32", lambda: bench_problem(
+                    8, 2048, 20, 32, torch.float32, dev, "cuda"), False),
+                ("step_iso_beam_500x64x20_nstr32", lambda: extra_problem(
+                    500, 64, 20, 32, beam=True, device=dev, kernel="cuda"),
+                 False),
+                ("step_aerosol_32str_beam_500x128x40", lambda: extra_problem(
+                    500, 128, 40, 32, g=0.8, device=dev, kernel="cuda"),
+                 False),
+                ("step_radiances_32x64x40_nstr32", lambda: radiance_problem(
+                    torch.float32, dev, "cuda", shape=(32, 64, 40, 32)),
+                 True),
+                ("step_aerosol_16str_beam_500x128x40", lambda: extra_problem(
+                    500, 128, 40, 16, g=0.8, device=dev, kernel="cuda"),
+                 False),
+                ("step_radiances_8str_32x512x40", lambda: radiance_problem(
+                    torch.float32, dev, "cuda"), True)):
+            p = make()
+            if radiances:
+                fn = lambda: p.disort.intensities(p.prop, p.bc)["uu"]
+            else:
+                fn = lambda: p.disort.forward(*p.args)
+            setups["new"]()
+            ref = fn()
+            same = {}
+            for name in ("parent", "parent_glue"):
+                setups[name]()
+                same[name] = bool(torch.equal(fn(), ref))
+            del ref
+            timed(what, fn, setups, turns, args.reps)
+            res[what + "_bit_equal_to_new"] = same
+            del p, fn
+            torch.cuda.empty_cache()
+
+    if "plain_lu" in parts:
+        old_lu = parent_function(args.parent / DISORT / "linsolve.py",
+                                 "lu_solve", linsolve)
+
+        def setup_lu(lu):
+            def go():
+                K.lu_solve = lu
+            return go
+
+        use("new")
+        p = bench_problem(8, 2048, 20, 32, torch.float32, dev, "cuda")
+        pr = p.disort._prepare(*p.args)
+        md = p.disort._solve_mode(pr)
+        sol = md["sol"]
+        k2p = lambda: K.bvp_forward_plain(sol.gp, sol.gm, sol.expd,
+                                          md["dblk"], pr["albedo"],
+                                          p.disort._ang0)
+        setups = {"parent": setup_lu(old_lu), "new": setup_lu(new_lu)}
+        ref = k2p()
+        setups["parent"]()
+        res["plain_k2_bit_equal_to_new"] = all(
+            bool(torch.equal(a, b)) for a, b in zip(k2p(), ref))
+        del ref
+        timed("plain_k2_iso_thermal_8x2048x20_nstr32", k2p, setups,
+              lib_turns, 1)
+        del p, pr, md, sol
+        torch.cuda.empty_cache()
+
     K._library = lib
     line = json.dumps(res)
     args.out_dir.mkdir(parents=True, exist_ok=True)
