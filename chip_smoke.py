@@ -22,9 +22,11 @@ or more:
    and each kernel's registers, stack and spills (K1-K5 at N = 1..8, every
    nstr up to 16; K1, K4 and K2 at N = 9..16 as one body each,
    ``<kernel>_wide<9..16>``: K4 a team of 4 lanes per element, K2 a warp
-   per column, each on a line of its own; K5 at each N = 9..16), K2 as
-   its bodies (one
-   thread per column for N < 8, ``bvp_forward_team`` for N = 8) and K6 as
+   per column, each on a line of its own; K5 at each N = 9..16 as
+   ``bvp_backward_rows`` and the per-thread body it replaced,
+   ``bvp_backward_thread``), K2 as its bodies (one thread per column for
+   N < 8, the solves' body at N <= 6; ``bvp_forward_half`` for N = 5..7,
+   the solves' body at N = 7; ``bvp_forward_team`` for N = 8) and K6 as
    its instantiations per mode (``bvp_fused_ab`` / ``_flux``, one thread
    per column for N <= 4; ``bvp_fused_team`` for N = 8);
 2. K1 against its plain PyTorch version, float32 on the card, nstr
@@ -32,7 +34,9 @@ or more:
    in some entries: max|err| <= 3e-5 max|ref| per output;
 3. K2 and K3 against their plain versions, float32 on the card, nstr
    4/8/16 at L = 100 on 1024 columns, and nstr 4/6/8/10/12/14/16 at L = 37
-   on 1018, which leaves every launch's last block of columns partial:
+   on 1018, which leaves every launch's last block of columns partial
+   (at nstr 10/12/14 also both of K2's bodies there: one thread per
+   column and the half-warp team):
    |err| <= 3e-5 max|ref| + 3e-4 |ref| per output;
 4. ``Disort.forward`` at the bench shape: each kernel launched once per
    call; fluxes against the plain path in float64 on every column
@@ -169,7 +173,10 @@ or more:
     and 0.999999 entries) and K4 (thermal x beam at m = 0, and m = 1)
     bit-equal to their plain versions (asserted; K4 also on 37 x 509
     elements at nstr 18 and 32, its last block partial), K4's float32 distance
-    from float64 printed with the modes matched by eigenvalue, K2 and K5
+    from float64 printed with the modes matched by eigenvalue, and beside it
+    with each mode matched as a span (its sign free; a near-degenerate set
+    of modes, eigenvalues within 1e-6, as one span) and the largest
+    principal-angle sine, K2 and K5
     on 1018 columns x 8 layers to phase 3's bound; then through the wide
     bodies, each path's fluxes against float64 as phase 7 holds them and
     each kernel against its plain version on the path's inputs, every
@@ -185,7 +192,15 @@ or more:
     and ``Disort.intensities`` at nstr 32
     (32 x 64 x 40: K4 32 times, held bit-equal at every mode m = 0..31,
     K2 and K5 twice, held on the folded modes; float64 with float32's
-    resonance floor on every 4th wave).
+    resonance floor on every 4th wave); on each of the five paths K5's
+    rows kernel and the per-thread body it replaced in turns;
+20. ``aerosol_16str_beam``'s configuration (500 x 128 x 40, HG g = 0.8, a
+    beam) at nstr 10, 12 and 14 through ``Disort.forward`` under
+    ``kernel="auto"``: K4, K2 and K5 once each; the fluxes against the
+    float64 plain path as phase 7 holds them; K4, K2 and K5 against their
+    plain versions on the path's inputs, every column, timed; both of
+    K2's bodies (one thread per column, the half-warp team) held as K2 is
+    and timed in turns (``tools/wide_ab.py``'s ``in_turns``).
 
 The problems, the roofline counts and the card's peaks come from
 ``pyharp_tpu_torch.bench`` (``problems``, ``roofline_run``, ``profile``).
@@ -321,20 +336,21 @@ def bvp_check(got, ref, what: str) -> float:
 
 def ptxas_summary(log: str) -> dict[str, str]:
     """'kernel<N>' -> 'R regs, F B stack, S B spill st, L B spill ld' from
-    ptxas -v; the bodies of N = 9..16 as 'kernel<9..16>'."""
+    ptxas -v; the bodies of K1, K4 and K2 at N = 9..16 as
+    'kernel<9..16>'."""
     out, cur, regs, spills = {}, None, {}, {}
     for line in log.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?$",
                       line.strip())
         if m:
             k = re.search(r"(stage1_isotropic|stage1_general|"
-                          r"bvp_forward_team|bvp_forward|"
-                          r"bvp_backward_flux|bvp_backward|bvp_fused_team|"
+                          r"bvp_forward_team|bvp_forward_half|bvp_forward|"
+                          r"bvp_backward_flux|bvp_backward_rows|"
+                          r"bvp_backward_thread|bvp_backward|bvp_fused_team|"
                           r"bvp_fused)_kernelILi(\d+)E(L[bi]([01])E)?",
                           m.group(1))
             w = re.search(r"(stage1_isotropic|stage1_general|bvp_forward)"
                           r"_wide_kernel(ILb([01])E)?", m.group(1))
-            b = re.search(r"bvp_backward_wide_kernelILi(\d+)E", m.group(1))
             cur = None
             if k:
                 # the second template argument: K1's beam flag, K6's mode,
@@ -348,8 +364,6 @@ def ptxas_summary(log: str) -> dict[str, str]:
             elif w:
                 beam = "_beam" if w.group(3) == "1" else ""
                 cur = f"{w.group(1)}_wide{beam}<9..16>"
-            elif b:
-                cur = f"bvp_backward<{b.group(1)}>"
             continue
         if cur is None:
             continue
@@ -1055,6 +1069,69 @@ def modes_distance(got, ref):
     return max(rel_err(a.double(), b) for a, b in zip(g, r)), swapped
 
 
+# modes whose reference eigenvalues lie within this of each other (relative)
+# form a near-degenerate set: rounding may turn their eigenvectors within
+# their span, so only the span is compared
+DEGENERATE_REL = 1e-6
+
+
+def modes_subspace_distance(got, ref):
+    """As ``modes_distance``, with the modes matched as subspaces: each
+    near-degenerate set (reference eigenvalues within ``DEGENERATE_REL`` of
+    their neighbour's, relative) as one span, every other mode as its own
+    line.  Each set's columns of [gp; gm] in ``got`` are compared with
+    their projection onto the span of ``ref``'s (least squares), so an
+    eigenvector's sign, which the Jacobi sweeps leave free, and a turn
+    within a degenerate span do not count.  Returns (the largest
+    max|err|/max|ref| of gp, gm, lam, expd so matched, the largest sine of
+    a principal angle between two matched spans, the number of
+    near-degenerate sets)."""
+    import torch
+
+    def sort(out):
+        idx = out[2].argsort(dim=0)
+        cols = idx[None].expand_as(out[0])
+        return [out[0].gather(1, cols).double(),
+                out[1].gather(1, cols).double(),
+                out[2].gather(0, idx).double(), out[3].gather(0, idx).double()]
+
+    g, r = sort(got[:4]), sort(ref[:4])
+    N = r[2].shape[0]
+    vg = torch.cat(g[:2]).reshape(2 * N, N, -1)      # [gp; gm] by mode
+    vr = torch.cat(r[:2]).reshape(2 * N, N, -1)
+    # every mode on its own line: got's column less its projection on ref's
+    dot = (vr * vg).sum(dim=0)
+    nr = (vr * vr).sum(dim=0)
+    fit = vr * (dot / nr)[None]
+    lam = r[2].reshape(N, -1)
+    tie = ((lam[1:] - lam[:-1]).abs()
+           <= DEGENERATE_REL * torch.maximum(lam[1:].abs(), lam[:-1].abs()))
+    alone = torch.ones_like(lam, dtype=torch.bool)
+    alone[1:] &= ~tie
+    alone[:-1] &= ~tie
+    cos2 = (dot * dot / (nr * (vg * vg).sum(dim=0))).clamp(max=1.0)
+    sine = float((1.0 - cos2[alone]).sqrt().max()) if bool(alone.any()) else 0.0
+    sets = 0
+    for e in torch.nonzero(tie.any(dim=0)).flatten().tolist():
+        k = 0
+        while k < N:
+            j = k
+            while j + 1 < N and bool(tie[j, e]):
+                j += 1
+            if j > k:
+                sets += 1
+                a, b = vg[:, k:j + 1, e], vr[:, k:j + 1, e]
+                fit[:, k:j + 1, e] = b @ torch.linalg.lstsq(b, a).solution
+                cos = torch.linalg.svdvals(torch.linalg.qr(b).Q.T
+                                           @ torch.linalg.qr(a).Q).min()
+                sine = max(sine, float((1.0 - cos.clamp(max=1.0) ** 2).sqrt()))
+            k = j + 1
+    # the matched columns: ref's plus what got holds outside ref's span
+    m = (vr + vg - fit).reshape(2 * N, *g[0].shape[1:])
+    g[0], g[1] = m[:N], m[N:]
+    return max(rel_err(a, b) for a, b in zip(g, r)), sine, sets
+
+
 def flux_line(label, res, card) -> str:
     launches, err, err_near_f, err_near, n_near, ms = res
     return (f"{label}: launches {launches}; max|err|/max|flux| vs float64 "
@@ -1111,6 +1188,37 @@ def k1_floor_text(N: int, L: int, B: int, clock_mhz: float) -> str:
     return (f"K1's division issue floor, estimated from the algorithm at "
             f"{clock_mhz:.0f} MHz (not measured): "
             f"{k1_division_floor_ms(N, L, B, clock_mhz):.3f} ms")
+
+
+# calls of each body per turn where bodies are timed in turns
+TURN_REPS = 10
+
+
+def k5_turns(rec: dict, bwd) -> str:
+    """K5 at N = 9..16 on a path's inputs ``bwd``: the rows kernel (the
+    solves' body) and the per-thread body it replaced, in turns (per
+    thread, rows, rows, per thread; ``tools/wide_ab.py``'s ``in_turns``),
+    the per-thread body held to the rows kernel within ``BVP_TOL``; the
+    times go into ``rec``.  Returns the text for the phase's line."""
+    import torch
+
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from tools.wide_ab import in_turns
+
+    rows = K.bvp_backward_body("rows", *bwd)
+    thread = K.bvp_backward_body("thread", *bwd)
+    bvp_check(thread, rows, f"K5's per-thread body on the {rec['path']} "
+                            "inputs against the rows kernel")
+    same = all(bool(torch.equal(a, b)) for a, b in zip(rows, thread))
+    del rows, thread
+    ms = in_turns({b: (lambda b=b: K.bvp_backward_body(b, *bwd))
+                   for b in K.BVP_BACKWARD_BODIES},
+                  ("thread", "rows", "rows", "thread"), TURN_REPS)
+    rec["bodies_ms"] = ms
+    return (f"K5 in turns on {rec['path']}: per thread (the body before) "
+            + ", ".join(f"{t:.3f}" for t in ms["thread"]) + " ms, rows "
+            + ", ".join(f"{t:.3f}" for t in ms["rows"])
+            + f" ms ({'bit-equal' if same else 'within ' + BVP_TOL})")
 
 
 def phase19(dev, card: str, regs: dict) -> list:
@@ -1192,6 +1300,7 @@ def phase19(dev, card: str, regs: dict) -> list:
                         fbeam=fbeam.double(), mur=mur.double(),
                         lam0=lam0.double())
                     d64, swapped = modes_distance(got, ref64)
+                    d64s, sine, nsets = modes_subspace_distance(got, ref64)
                     del ref64
         p = extra_problem(2, 509, 8, nstr, g=0.8, device=dev, kernel="torch",
                           seed=nstr)
@@ -1209,7 +1318,11 @@ def phase19(dev, card: str, regs: dict) -> list:
                     f"on/off, m 1) bit-equal, its float32 vs float64 plain "
                     f"(gp, gm, lam, expd; modes matched by eigenvalue, "
                     f"{swapped} elements of {L * B} hold them in another "
-                    f"order) {d64:.2e}; K2 {e2:.2e}, K5 {e5:.2e}")
+                    f"order) {d64:.2e}, with each mode matched as a span "
+                    f"(its sign free; {nsets} near-degenerate sets within "
+                    f"{DEGENERATE_REL} as one span) {d64s:.2e}, the largest "
+                    f"principal-angle sine {sine:.2e}; K2 {e2:.2e}, "
+                    f"K5 {e5:.2e}")
         del p, ds, pr, md, s5, bwd, pm, got
     say("19", "at L 37 x B 4096 (stage 1) and 1018 columns x 8 layers "
               "(BVP): " + "; ".join(msgs) + f" ({STAGE1_TOL}; {BVP_TOL}) "
@@ -1268,14 +1381,18 @@ def phase19(dev, card: str, regs: dict) -> list:
     n_nan = int(torch.isnan(fixed).sum())
     recs = thermal_records(path, res[0], pr, md, p.disort._ang0, once=True)
     k1_ptxas(recs[0], regs)
+    sol = md["sol"]
+    turns = k5_turns(recs[2], (sol.gp, sol.gm, sol.expd, md["P"], md["g"],
+                               p.disort._ang0))
+    recs[2]["ptxas"] = regs.get("bvp_backward_rows<16>")
     say("19", flux_line(f"isotropic thermal {path}", res, card)
               + f"; N <= 8's fixed secular schedule on the same inputs in "
               f"float32: {n_nan} of {fixed.numel()} entries of gp NaN; per "
               "kernel: " + records_line(recs) + "; "
-              + k1_floor_text(16, pr["L"], pr["B"], clock_mhz)
+              + k1_floor_text(16, pr["L"], pr["B"], clock_mhz) + "; " + turns
               + f"; {time.perf_counter() - t19:.1f} s into phase 19")
     kernels_json += recs
-    del p, pr, md, fixed, recs
+    del p, pr, md, sol, fixed, recs
     torch.cuda.empty_cache()
 
     # the isotropic beam at nstr 32 through K1's beam variant, K2, K5; the
@@ -1301,9 +1418,15 @@ def phase19(dev, card: str, regs: dict) -> list:
         if recs[0]["name"] == "stage1_isotropic_beam":
             k1_ptxas(recs[0], regs)
             floor = "; " + k1_floor_text(16, pr["L"], pr["B"], clock_mhz)
+        sol = md["sol"]
+        N = sol.gp.shape[0]
+        turns = k5_turns(recs[2], (sol.gp, sol.gm, sol.expd, md["P"],
+                                   md["g"], p.disort._ang0))
+        recs[2]["ptxas"] = regs.get(f"bvp_backward_rows<{N}>")
         say("19", flux_line(label, res, card) + "; per kernel: "
-                  + records_line(recs) + floor
+                  + records_line(recs) + floor + "; " + turns
                   + f"; {time.perf_counter() - t19:.1f} s into phase 19")
+        del sol
         kernels_json += recs
         del p, pr, md, recs
         torch.cuda.empty_cache()
@@ -1388,20 +1511,24 @@ def phase19(dev, card: str, regs: dict) -> list:
                         once=True)
     recs[0]["ptxas"] = regs.get("stage1_general_wide<9..16>")
     recs[1]["ptxas"] = regs.get("bvp_forward_wide<9..16>")
-    recs[2]["ptxas"] = regs.get("bvp_backward<16>")
+    recs[2]["ptxas"] = regs.get("bvp_backward_rows<16>")
     # where K4's time goes: the same launch without the Jacobi sweeps (its
     # outputs are not used)
     ms_k4_0 = cuda_ms(lambda: K.stage1_general(
         pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["b_top_lay"], pr["slope"],
         p.disort._ang0, thermal=False, sweeps=0, fbeam=pr["fbeam"],
         mur=md["mur"], lam0=md["lam0"]), 3)
+    sol = md["sol"]
+    turns = k5_turns(recs[2], (sol.gp, sol.gm, sol.expd, md["P"], md["g"],
+                               p.disort._ang0))
+    del sol
     say("19", flux_line(label, res, card).replace(
         "plain:", f"plain on every 10th wave ({len(sel)} waves x 128 "
                   "columns):", 1)
         + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
         " GiB; per kernel: " + records_line(recs)
         + f"; K4 without its 8 Jacobi sweeps {ms_k4_0:.3f} ms; ptxas: "
-        + "; ".join(f"{r['name']} {r['ptxas']}" for r in recs)
+        + "; ".join(f"{r['name']} {r['ptxas']}" for r in recs) + "; " + turns
         + f"; {time.perf_counter() - t19:.1f} s into phase 19")
     kernels_json += recs
     n_elem = pr["ssa_s"].numel()
@@ -1512,6 +1639,8 @@ def phase19(dev, card: str, regs: dict) -> list:
         (fgp, fgm, fexpd, Pm, gm_, ang0), {}, bvp_check, BVP_TOL,
         kernel_flops("bvp_backward", N, L, nm * B), near=near_fold,
         once=True))
+    recs[-1]["ptxas"] = regs.get("bvp_backward_rows<16>")
+    turns = k5_turns(recs[-1], (fgp, fgm, fexpd, Pm, gm_, ang0))
     nrad = out["uu"].numel()
     n_near = int(near.sum())
     say("19", f"radiances {'x'.join(map(str, shape[:3]))} nstr 32: launches "
@@ -1525,11 +1654,88 @@ def phase19(dev, card: str, regs: dict) -> list:
               + f"; step {ms_step:.3f} ms = {nrad / ms_step * 1e3:.0f} "
               f"radiances/s ({nrad}); per kernel (K4 over the {len(calls)} "
               "modes, bit-equal to its plain version on every column): "
-              + records_line(recs) + f" [{card}]")
+              + records_line(recs) + "; " + turns + f" [{card}]")
     kernels_json += recs
     del p, ds, out, pr, modes, fgp, fgm, fexpd, dblk, alb, Pm, gm_, recs
     torch.cuda.empty_cache()
     say("19", f"phase 19 took {time.perf_counter() - t19:.1f} s [{card}]")
+    return kernels_json
+
+
+# ---- K2 at N = 5..7 at full width (phase 20) --------------------------------
+
+# the stream counts between the repo's configurations whose K2 bodies are
+# N = 5, 6, 7
+NSTR_MID = (10, 12, 14)
+
+
+def phase20(dev, card: str, regs: dict) -> list:
+    """Phase 20: aerosol_16str_beam's configuration at nstr 10, 12 and 14
+    through ``Disort.forward`` under ``"auto"``; returns the entries of the
+    ``kernels`` line."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import extra_problem
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from tools.wide_ab import in_turns
+
+    t20 = time.perf_counter()
+    kernels_json = []
+    for nstr in NSTR_MID:
+        N = nstr // 2
+        label = (f"aerosol_16str_beam's configuration 500x128x40 at nstr "
+                 f"{nstr}, HG g 0.8")
+        p = extra_problem(500, 128, 40, nstr, g=0.8, device=dev,
+                          kernel="auto")
+        p64 = extra_problem(500, 128, 40, nstr, g=0.8, dtype=torch.float64,
+                            device=dev, kernel="torch")
+        res = solve_and_check(p.disort, p64.disort, (p.prop, p.bc),
+                              (p64.prop, p64.bc, None),
+                              dict(stage1_general=1, bvp_forward=1,
+                                   bvp_backward=1), label)
+        del p64
+        torch.cuda.empty_cache()
+        ds = p.disort
+        pr = ds._prepare(p.prop, p.bc, None)
+        md = ds._solve_mode(pr)
+        near = resonance_margin(md) < RESONANCE_MARGIN
+        path = f"aerosol 500x128x40 nstr {nstr}"
+        recs = beam_records(path, res[0], pr, md, ds._ang0, near=near)
+        body = "bvp_forward_half" if N in K.HALF_WARP_N else "bvp_forward"
+        for rec, name in zip(recs, (f"stage1_general<{N}>", f"{body}<{N}>",
+                                    f"bvp_backward<{N}>")):
+            rec["ptxas"] = regs.get(name)
+        # K2's bodies at this N, each held to the plain version on every
+        # column as kernel_record holds K2, then timed in turns
+        sol = md["sol"]
+        fa = (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ds._ang0)
+        want = K.bvp_forward_plain(*fa)
+        errs = {}
+        for b in K.BVP_FORWARD_BODIES:
+            got = K.bvp_forward_body(b, *fa)
+            errs[b] = bvp_check([g[..., ~near] for g in got],
+                                [w[..., ~near] for w in want],
+                                f"K2 {b} on the {path} inputs, columns away "
+                                "from a beam resonance")
+            err = near_err(got, want, near) if bool(near.any()) else 0.0
+            assert err <= NEAR_RESONANCE_TOL, (b, path, err)
+            del got
+        del want
+        bodies = tuple(K.BVP_FORWARD_BODIES)
+        ms = in_turns({b: (lambda b=b: K.bvp_forward_body(b, *fa))
+                       for b in bodies}, bodies + bodies[::-1], TURN_REPS)
+        recs[1]["bodies_ms"] = ms
+        say("20", flux_line(label, res, card) + "; per kernel, all columns: "
+                  + records_line(recs) + "; K2's bodies (the solves' "
+                  f"{body}), max|err|/max|ref| against the plain version "
+                  f"away from a resonance and ms in turns: " + "; ".join(
+                      f"{b} {errs[b]:.2e}, "
+                      + ", ".join(f"{t:.3f}" for t in ms[b]) + " ms"
+                      for b in bodies) + f" [{card}]")
+        kernels_json += recs
+        del p, ds, pr, md, sol, fa, recs, near
+        torch.cuda.empty_cache()
+    say("20", f"phase 20 took {time.perf_counter() - t20:.1f} s [{card}]")
     return kernels_json
 
 
@@ -1573,7 +1779,17 @@ def main() -> None:
              "its Jacobi set in registers (stage1_general_wide<9..16>: "
              f"{regs.get('stage1_general_wide<9..16>')}); K2 a warp per "
              "column, prefix-max pivot bits (bvp_forward_wide<9..16>: "
-             f"{regs.get('bvp_forward_wide<9..16>')})")
+             f"{regs.get('bvp_forward_wide<9..16>')}); K5 rows in parallel "
+             "over 32 columns: " + "; ".join(
+                 f"bvp_backward_rows<{n}> {regs.get(f'bvp_backward_rows<{n}>')}"
+                 for n in range(9, 17)))
+    say("1", "K2 at N = 5..7: the half-warp team (the solves' body at N = 7) "
+             + "; ".join(f"bvp_forward_half<{n}> "
+                         f"{regs.get(f'bvp_forward_half<{n}>')}"
+                         for n in (5, 6, 7))
+             + "; one thread per column (the solves' body at N = 5, 6) "
+             + "; ".join(f"bvp_forward<{n}> {regs.get(f'bvp_forward<{n}>')}"
+                         for n in (5, 6, 7)))
 
     # ---- phase 2: K1 against its plain version -----------------------------
     k1_err = {}
@@ -1599,9 +1815,14 @@ def main() -> None:
             pr = ds._prepare(prop, bc, temf)
             md = ds._solve_mode(pr)
             sol = md["sol"]
-            e2 = bvp_check((md["P"], md["g"]), K.bvp_forward_plain(
-                sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ang),
-                f"K2 nstr {nstr} L {L}")
+            fa = (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ang)
+            ref2 = K.bvp_forward_plain(*fa)
+            e2 = bvp_check((md["P"], md["g"]), ref2, f"K2 nstr {nstr} L {L}")
+            # every body of K2 at N = 5..7, the last block partial
+            e2b = {body: bvp_check(K.bvp_forward_body(body, *fa), ref2,
+                                   f"K2 {body} nstr {nstr} L {L}")
+                   for body in (K.BVP_FORWARD_BODIES
+                                if nstr // 2 in (5, 6, 7) else ())}
             e3 = bvp_check(
                 K.bvp_backward_flux(sol.gp, sol.gm, sol.expd, md["P"], md["g"],
                                     md["ptop_p"], md["ptop_m"], md["pb_p"],
@@ -1610,7 +1831,9 @@ def main() -> None:
                                           md["g"], md["ptop_p"], md["ptop_m"],
                                           md["pb_p"], md["pb_m"], ang),
                 f"K3 nstr {nstr} L {L}")
-            msgs.append(f"nstr {nstr} L {L}: K2 {e2:.2e} K3 {e3:.2e}")
+            msgs.append(f"nstr {nstr} L {L}: K2 {e2:.2e}" + "".join(
+                f" (body {b} {e:.2e})" for b, e in e2b.items())
+                + f" K3 {e3:.2e}")
     say("3", "max|err|/max|ref| on 1024 (L 100; nstr 4/8/16) and 1018 (L 37) "
              "columns: "
              + "; ".join(msgs) + f" ({BVP_TOL})")
@@ -2559,6 +2782,9 @@ def main() -> None:
 
     # ---- phase 19: 18 to 32 streams -----------------------------------------
     kernels_json += phase19(dev, card, regs)
+
+    # ---- phase 20: K2 at N = 5..7 at full width ---------------------------
+    kernels_json += phase20(dev, card, regs)
 
     print(card)
     print(json.dumps({"kernels": kernels_json}))

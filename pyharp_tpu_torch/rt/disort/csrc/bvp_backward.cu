@@ -4,23 +4,39 @@
 // reached through solve_bvp_pallas (:1233), the JAX package's path for
 // N > 4 (disort.py:447).
 //
-// One thread owns one column b and walks the layers bottom-up, L-1 to 0,
-// with the carry dx (N) in registers: x_l = g_l + P_l dx gives the layer's
-// coefficients (a, b) = (x[:N], x[N:]), written out, and the next carry is
-// dx = gp a + (gm E) b of this layer, in the plain version's order (the
-// two sums formed apart, then added).  With no layer chunks there is no
-// padded sublayer to mask.
+// Each column b walks the layers bottom-up, L-1 to 0, with the carry dx
+// (N): x_l = g_l + P_l dx gives the layer's coefficients (a, b) = (x[:N],
+// x[N:]), written out, and the next carry is dx = gp a + (gm E) b of this
+// layer, in the plain version's order (the two sums formed apart, then
+// added).  With no layer chunks there is no padded sublayer to mask.
 //
 // Bound on the H100: memory.  Per column and layer it reads
-// (4N^2 + 3N)*4 bytes (gp, gm, P, g, E: 1120 bytes at N = 8) and writes
-// 8N (64 at N = 8), against ~8N^2 flops (~0.4 flop/byte), far below the
-// f32 ridge of ~20 flop/byte; each thread streams its column with loads
-// coalesced along B and keeps only dx and x (3N floats) live between
-// layers.  N = 9..16 (nstr 18..32) run the same sweep, one template
-// instantiation each (bvp_backward_wide_kernel: each row's loads kept
-// behind the previous row, so that dx and x, 48 floats at N = 16, are all
-// that stays live); its inputs come to 4,288 bytes per column and layer.
-// chip_smoke.py phase 1 prints the registers and spills of every build.
+// (4N^2 + 3N)*4 bytes (gp, gm, P, g, E: 1120 bytes at N = 8, 4,288 at
+// N = 16) and writes 8N, against ~8N^2 flops (~0.4 flop/byte), far below
+// the f32 ridge of ~20 flop/byte.
+//
+// N <= 8: one thread owns a column (bvp_backward_kernel), streams it with
+// loads coalesced along B and keeps only dx and x (3N floats) between
+// layers; it reaches 77-83% of its bound (PERF.md).
+//
+// N = 9..16 (nstr 18..32): rows in parallel over a tile of 32 columns
+// (bvp_backward_rows_kernel).  One thread per column runs a chain of 3N
+// dependent memory round trips a layer, which only other columns hide:
+// that body (bvp_backward_thread_kernel, kept for timing in turns) reached
+// 6% of its bound at B = 4,096 and 36% at 16,384 on an H100 (PERF.md; the
+// rows kernel 77% and 85% there).  Here a block of 2N
+// warps owns 32 consecutive columns, lane c column b0 + c, so every load
+// of a row of an input is one 128-byte segment.  Warp w forms x_w =
+// g_w + P_w dx; after a barrier warp i < N forms the sum gp_i a and warp
+// N + i the sum (gm_i E) b, which the next layer's lanes add (dx_i = up_i
+// + dn_i) as they read them; x, E and the two sums pass through shared
+// memory.  Each thread holds one row of P and g, and one row of gp or gm
+// (warps w >= N also E_(w-N)), 2N + 2 floats: it loads the next layer's
+// as soon as this layer's are used, so a layer's loads are in flight for
+// a whole layer and the serial chain per layer is arithmetic and two
+// barriers.  Every sum is formed by one thread in the per-thread body's
+// order.  chip_smoke.py phase 1 prints the registers and spills of every
+// build.
 
 #include "common.cuh"
 
@@ -60,7 +76,8 @@ bvp_backward_kernel(const float* __restrict__ gp_in,
 // An empty asm with a memory clobber: no load or store moves across it.
 __device__ __forceinline__ void fence_loads() { asm volatile("" ::: "memory"); }
 
-// The same sweep at N = 9..16, with each row's loads kept behind the
+// The per-thread sweep at N = 9..16, the body before the rows kernel (kept
+// to time the two in turns), with each row's loads kept behind the
 // previous row's use: fully unrolled, the compiler otherwise emits all
 // 2N^2 loads of P (and 2N^2 of gp, gm) before the first product and holds
 // them, 255 registers and up to 3 KB of spills at N = 16.  The arithmetic
@@ -70,7 +87,7 @@ __device__ __forceinline__ void fence_loads() { asm volatile("" ::: "memory"); }
 // hoisted the loads (255 registers and 8 B-3.2 KB of spills at N = 11..16).
 template <int N>
 __global__ void __launch_bounds__(64)
-bvp_backward_wide_kernel(const float* __restrict__ gp_in,
+bvp_backward_thread_kernel(const float* __restrict__ gp_in,
                          const float* __restrict__ gm_in,
                          const float* __restrict__ e_in,
                          const float* __restrict__ p_in,
@@ -121,20 +138,124 @@ bvp_backward_wide_kernel(const float* __restrict__ gp_in,
   }
 }
 
+// The rows kernel at N = 9..16 (the design is at the head of this file).
+// Shared memory: x (2N rows), E, and the sums up = gp a, dn = (gm E) b
+// (N rows each), 32 columns a row.
+template <int N>
+__global__ void __launch_bounds__(64 * N)
+bvp_backward_rows_kernel(const float* __restrict__ gp_in,
+                         const float* __restrict__ gm_in,
+                         const float* __restrict__ e_in,
+                         const float* __restrict__ p_in,
+                         const float* __restrict__ g_in,
+                         float* __restrict__ a_out, float* __restrict__ b_out,
+                         int L, int64_t B) {
+  constexpr int kTile = 32;
+  __shared__ float s_x[2 * N][kTile];
+  __shared__ float s_e[N][kTile];
+  __shared__ float s_up[N][kTile];
+  __shared__ float s_dn[N][kTile];
+  const int c = static_cast<int>(threadIdx.x) & 31;
+  const int w = static_cast<int>(threadIdx.x) >> 5;   // row of x
+  const bool upper = w < N;                            // warp-uniform
+  const int i = upper ? w : w - N;                     // row of its sum
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kTile + c;
+  const bool in = b < B;
+  const int64_t LB = static_cast<int64_t>(L) * B;
+  // the column's first element of each row this thread reads and writes;
+  // lanes past B read column B - 1 and store nothing
+  const int64_t col = in ? b : B - 1;
+  const float* p_row = p_in + static_cast<int64_t>(w * N) * LB + col;
+  const float* g_row = g_in + static_cast<int64_t>(w) * LB + col;
+  const float* c_row = (upper ? gp_in : gm_in)
+                       + static_cast<int64_t>(i * N) * LB + col;
+  const float* e_row = e_in + static_cast<int64_t>(i) * LB + col;
+  float* x_out = (upper ? a_out : b_out) + static_cast<int64_t>(i) * LB + b;
+
+  float pr[N];     // P[w, :] of the layer
+  float gw;        // g[w]
+  float ev = 0.0f; // E[i] (warps w >= N)
+  float cr[N];     // gp[i, :] (w < N) or gm[i, :]
+  auto load_x = [&](int l) {
+    const int64_t o = static_cast<int64_t>(l) * B;
+#pragma unroll
+    for (int k = 0; k < N; ++k) pr[k] = p_row[k * LB + o];
+    gw = g_row[o];
+    if (!upper) ev = e_row[o];
+  };
+  auto load_sum = [&](int l) {
+    const int64_t o = static_cast<int64_t>(l) * B;
+#pragma unroll
+    for (int k = 0; k < N; ++k) cr[k] = c_row[k * LB + o];
+  };
+
+  for (int k = static_cast<int>(threadIdx.x); k < N * kTile;
+       k += static_cast<int>(blockDim.x)) {
+    (&s_up[0][0])[k] = 0.0f;
+    (&s_dn[0][0])[k] = 0.0f;
+  }
+  load_x(L - 1);
+  load_sum(L - 1);
+  __syncthreads();
+  for (int l = L - 1; l >= 0; --l) {
+    // x_w = g_w + P_w dx, dx_k = up_k + dn_k of the layer below
+    float acc = pr[0] * (s_up[0][c] + s_dn[0][c]);
+#pragma unroll
+    for (int k = 1; k < N; ++k) acc = acc + pr[k] * (s_up[k][c] + s_dn[k][c]);
+    const float x = gw + acc;
+    s_x[w][c] = x;
+    if (!upper) s_e[i][c] = ev;
+    if (in) x_out[static_cast<int64_t>(l) * B] = x;
+    if (l > 0) load_x(l - 1);
+    __syncthreads();                 // x and E of the layer are shared
+    if (l == 0) break;
+    // the carry's two sums: up_i = gp_i a, dn_i = (gm_i E) b
+    float sum;
+    if (upper) {
+      sum = cr[0] * s_x[0][c];
+#pragma unroll
+      for (int k = 1; k < N; ++k) sum = sum + cr[k] * s_x[k][c];
+      s_up[i][c] = sum;
+    } else {
+      sum = (cr[0] * s_e[0][c]) * s_x[N][c];
+#pragma unroll
+      for (int k = 1; k < N; ++k) sum = sum + (cr[k] * s_e[k][c]) * s_x[N + k][c];
+      s_dn[i][c] = sum;
+    }
+    if (l > 1) load_sum(l - 1);      // layer 0 forms no carry
+    __syncthreads();                 // the sums are shared; x is free
+  }
+}
+
 template <int N>
 int launch(const float* gp, const float* gm, const float* expd,
            const float* p, const float* g, float* a, float* b, int L,
            int64_t B, cudaStream_t stream) {
   if (B == 0 || L == 0) return 0;
-  constexpr int kThreads = 64;
-  const auto blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
   if constexpr (N > kNarrowMaxN) {
-    bvp_backward_wide_kernel<N><<<blocks, kThreads, 0, stream>>>(
+    constexpr int kTile = 32;
+    const auto blocks = static_cast<unsigned>((B + kTile - 1) / kTile);
+    bvp_backward_rows_kernel<N><<<blocks, 64 * N, 0, stream>>>(
         gp, gm, expd, p, g, a, b, L, B);
   } else {
+    constexpr int kThreads = 64;
+    const auto blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
     bvp_backward_kernel<N><<<blocks, kThreads, 0, stream>>>(
         gp, gm, expd, p, g, a, b, L, B);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-thread body at N = 9..16, timed beside the rows kernel.
+template <int N>
+int launch_thread(const float* gp, const float* gm, const float* expd,
+                  const float* p, const float* g, float* a, float* b, int L,
+                  int64_t B, cudaStream_t stream) {
+  if (B == 0 || L == 0) return 0;
+  constexpr int kThreads = 64;
+  const auto blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
+  bvp_backward_thread_kernel<N><<<blocks, kThreads, 0, stream>>>(
+      gp, gm, expd, p, g, a, b, L, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -164,6 +285,27 @@ PYHARP_API int pyharp_bvp_backward(int n, const float* gp, const float* gm,
     case 14: return launch<14>(gp, gm, expd, p, g, a, b, L, B, s);
     case 15: return launch<15>(gp, gm, expd, p, g, a, b, L, B, s);
     case 16: return launch<16>(gp, gm, expd, p, g, a, b, L, B, s);
+    default: return PYHARP_UNSUPPORTED_N;
+  }
+}
+
+// As pyharp_bvp_backward at n = 9..16, through the per-thread body that
+// came before the rows kernel: chip_smoke.py times the two in turns.
+PYHARP_API int pyharp_bvp_backward_thread(int n, const float* gp,
+                                          const float* gm, const float* expd,
+                                          const float* p, const float* g,
+                                          float* a, float* b, int L,
+                                          long long B, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (n) {
+    case 9: return launch_thread<9>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 10: return launch_thread<10>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 11: return launch_thread<11>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 12: return launch_thread<12>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 13: return launch_thread<13>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 14: return launch_thread<14>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 15: return launch_thread<15>(gp, gm, expd, p, g, a, b, L, B, s);
+    case 16: return launch_thread<16>(gp, gm, expd, p, g, a, b, L, B, s);
     default: return PYHARP_UNSUPPORTED_N;
   }
 }

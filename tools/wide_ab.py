@@ -56,6 +56,18 @@ DISORT = Path("pyharp_tpu_torch/rt/disort")
 PARTS = ("kernels", "steps", "plain_lu")
 
 
+def in_turns(fns: dict, turns, reps: int) -> dict[str, list[float]]:
+    """Mean device ms of each ``fns[name]()`` over ``reps`` calls, once for
+    every entry of ``turns`` in its order (a name may come more than
+    once, as in parent, new, new, parent)."""
+    from chip_smoke import cuda_ms
+
+    ms = {}
+    for name in turns:
+        ms.setdefault(name, []).append(cuda_ms(fns[name], reps))
+    return ms
+
+
 def parent_function(path: Path, name: str, module):
     """The function ``name`` of the source file ``path``, defined in the
     namespace of ``module`` (this tree's counterpart of that file)."""
@@ -83,7 +95,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("wide_ab: needs a CUDA card")
-    from chip_smoke import bvp_check, cuda_ms, ptxas_summary, run
+    from chip_smoke import bvp_check, ptxas_summary, run
     from pyharp_tpu_torch.bench.problems import (bench_problem, extra_problem,
                                                  radiance_problem)
     from pyharp_tpu_torch.rt.disort import disort as D
@@ -112,10 +124,11 @@ def main() -> None:
         K._library = libs[name]
 
     def timed(what, fn, setups, turns, reps):
-        ms = {}
-        for name in turns:
+        def call(name):
             setups[name]()
-            ms.setdefault(name, []).append(cuda_ms(fn, reps))
+            return fn()
+        ms = in_turns({name: (lambda name=name: call(name))
+                       for name in setups}, turns, reps)
         setups["new"]()
         res[what] = ms
         print(f"{what}: {ms} [{card}]", flush=True)
