@@ -23,10 +23,9 @@ or more:
    nstr up to 16; K1, K4 and K2 at N = 9..16 as one body each,
    ``<kernel>_wide<9..16>``: K4 a team of 4 lanes per element, K2 a warp
    per column, each on a line of its own; K5 at each N = 9..16 as
-   ``bvp_backward_rows`` and the per-thread body it replaced,
-   ``bvp_backward_thread``), K2 as its bodies (one thread per column for
-   N < 8, the solves' body at N <= 6; ``bvp_forward_half`` for N = 5..7,
-   the solves' body at N = 7; ``bvp_forward_team`` for N = 8) and K6 as
+   ``bvp_backward_rows``), K2 as its bodies (one thread per column for
+   N <= 6, ``bvp_forward_half`` for N = 7, ``bvp_forward_team`` for
+   N = 8) and K6 as
    its instantiations per mode (``bvp_fused_ab`` / ``_flux``, one thread
    per column for N <= 4; ``bvp_fused_team`` for N = 8);
 2. K1 against its plain PyTorch version, float32 on the card, nstr
@@ -34,9 +33,7 @@ or more:
    in some entries: max|err| <= 3e-5 max|ref| per output;
 3. K2 and K3 against their plain versions, float32 on the card, nstr
    4/8/16 at L = 100 on 1024 columns, and nstr 4/6/8/10/12/14/16 at L = 37
-   on 1018, which leaves every launch's last block of columns partial
-   (at nstr 10/12/14 also both of K2's bodies there: one thread per
-   column and the half-warp team):
+   on 1018, which leaves every launch's last block of columns partial:
    |err| <= 3e-5 max|ref| + 3e-4 |ref| per output;
 4. ``Disort.forward`` at the bench shape: each kernel launched once per
    call; fluxes against the plain path in float64 on every column
@@ -192,15 +189,12 @@ or more:
     and ``Disort.intensities`` at nstr 32
     (32 x 64 x 40: K4 32 times, held bit-equal at every mode m = 0..31,
     K2 and K5 twice, held on the folded modes; float64 with float32's
-    resonance floor on every 4th wave); on each of the five paths K5's
-    rows kernel and the per-thread body it replaced in turns;
+    resonance floor on every 4th wave);
 20. ``aerosol_16str_beam``'s configuration (500 x 128 x 40, HG g = 0.8, a
     beam) at nstr 10, 12 and 14 through ``Disort.forward`` under
     ``kernel="auto"``: K4, K2 and K5 once each; the fluxes against the
     float64 plain path as phase 7 holds them; K4, K2 and K5 against their
-    plain versions on the path's inputs, every column, timed; both of
-    K2's bodies (one thread per column, the half-warp team) held as K2 is
-    and timed in turns (``tools/wide_ab.py``'s ``in_turns``).
+    plain versions on the path's inputs, every column, timed.
 
 The problems, the roofline counts and the card's peaks come from
 ``pyharp_tpu_torch.bench`` (``problems``, ``roofline_run``, ``profile``).
@@ -346,7 +340,7 @@ def ptxas_summary(log: str) -> dict[str, str]:
             k = re.search(r"(stage1_isotropic|stage1_general|"
                           r"bvp_forward_team|bvp_forward_half|bvp_forward|"
                           r"bvp_backward_flux|bvp_backward_rows|"
-                          r"bvp_backward_thread|bvp_backward|bvp_fused_team|"
+                          r"bvp_backward|bvp_fused_team|"
                           r"bvp_fused)_kernelILi(\d+)E(L[bi]([01])E)?",
                           m.group(1))
             w = re.search(r"(stage1_isotropic|stage1_general|bvp_forward)"
@@ -1190,37 +1184,6 @@ def k1_floor_text(N: int, L: int, B: int, clock_mhz: float) -> str:
             f"{k1_division_floor_ms(N, L, B, clock_mhz):.3f} ms")
 
 
-# calls of each body per turn where bodies are timed in turns
-TURN_REPS = 10
-
-
-def k5_turns(rec: dict, bwd) -> str:
-    """K5 at N = 9..16 on a path's inputs ``bwd``: the rows kernel (the
-    solves' body) and the per-thread body it replaced, in turns (per
-    thread, rows, rows, per thread; ``tools/wide_ab.py``'s ``in_turns``),
-    the per-thread body held to the rows kernel within ``BVP_TOL``; the
-    times go into ``rec``.  Returns the text for the phase's line."""
-    import torch
-
-    from pyharp_tpu_torch.rt.disort import kernels as K
-    from tools.wide_ab import in_turns
-
-    rows = K.bvp_backward_body("rows", *bwd)
-    thread = K.bvp_backward_body("thread", *bwd)
-    bvp_check(thread, rows, f"K5's per-thread body on the {rec['path']} "
-                            "inputs against the rows kernel")
-    same = all(bool(torch.equal(a, b)) for a, b in zip(rows, thread))
-    del rows, thread
-    ms = in_turns({b: (lambda b=b: K.bvp_backward_body(b, *bwd))
-                   for b in K.BVP_BACKWARD_BODIES},
-                  ("thread", "rows", "rows", "thread"), TURN_REPS)
-    rec["bodies_ms"] = ms
-    return (f"K5 in turns on {rec['path']}: per thread (the body before) "
-            + ", ".join(f"{t:.3f}" for t in ms["thread"]) + " ms, rows "
-            + ", ".join(f"{t:.3f}" for t in ms["rows"])
-            + f" ms ({'bit-equal' if same else 'within ' + BVP_TOL})")
-
-
 def phase19(dev, card: str, regs: dict) -> list:
     """Phase 19, 18 to 32 streams: the route, every new N against the plain
     versions, then the paths through the bodies of N = 9..16; returns the
@@ -1381,18 +1344,15 @@ def phase19(dev, card: str, regs: dict) -> list:
     n_nan = int(torch.isnan(fixed).sum())
     recs = thermal_records(path, res[0], pr, md, p.disort._ang0, once=True)
     k1_ptxas(recs[0], regs)
-    sol = md["sol"]
-    turns = k5_turns(recs[2], (sol.gp, sol.gm, sol.expd, md["P"], md["g"],
-                               p.disort._ang0))
     recs[2]["ptxas"] = regs.get("bvp_backward_rows<16>")
     say("19", flux_line(f"isotropic thermal {path}", res, card)
               + f"; N <= 8's fixed secular schedule on the same inputs in "
               f"float32: {n_nan} of {fixed.numel()} entries of gp NaN; per "
               "kernel: " + records_line(recs) + "; "
-              + k1_floor_text(16, pr["L"], pr["B"], clock_mhz) + "; " + turns
+              + k1_floor_text(16, pr["L"], pr["B"], clock_mhz)
               + f"; {time.perf_counter() - t19:.1f} s into phase 19")
     kernels_json += recs
-    del p, pr, md, sol, fixed, recs
+    del p, pr, md, fixed, recs
     torch.cuda.empty_cache()
 
     # the isotropic beam at nstr 32 through K1's beam variant, K2, K5; the
@@ -1418,15 +1378,11 @@ def phase19(dev, card: str, regs: dict) -> list:
         if recs[0]["name"] == "stage1_isotropic_beam":
             k1_ptxas(recs[0], regs)
             floor = "; " + k1_floor_text(16, pr["L"], pr["B"], clock_mhz)
-        sol = md["sol"]
-        N = sol.gp.shape[0]
-        turns = k5_turns(recs[2], (sol.gp, sol.gm, sol.expd, md["P"],
-                                   md["g"], p.disort._ang0))
+        N = md["sol"].gp.shape[0]
         recs[2]["ptxas"] = regs.get(f"bvp_backward_rows<{N}>")
         say("19", flux_line(label, res, card) + "; per kernel: "
-                  + records_line(recs) + floor + "; " + turns
+                  + records_line(recs) + floor
                   + f"; {time.perf_counter() - t19:.1f} s into phase 19")
-        del sol
         kernels_json += recs
         del p, pr, md, recs
         torch.cuda.empty_cache()
@@ -1518,17 +1474,13 @@ def phase19(dev, card: str, regs: dict) -> list:
         pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["b_top_lay"], pr["slope"],
         p.disort._ang0, thermal=False, sweeps=0, fbeam=pr["fbeam"],
         mur=md["mur"], lam0=md["lam0"]), 3)
-    sol = md["sol"]
-    turns = k5_turns(recs[2], (sol.gp, sol.gm, sol.expd, md["P"], md["g"],
-                               p.disort._ang0))
-    del sol
     say("19", flux_line(label, res, card).replace(
         "plain:", f"plain on every 10th wave ({len(sel)} waves x 128 "
                   "columns):", 1)
         + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
         " GiB; per kernel: " + records_line(recs)
         + f"; K4 without its 8 Jacobi sweeps {ms_k4_0:.3f} ms; ptxas: "
-        + "; ".join(f"{r['name']} {r['ptxas']}" for r in recs) + "; " + turns
+        + "; ".join(f"{r['name']} {r['ptxas']}" for r in recs)
         + f"; {time.perf_counter() - t19:.1f} s into phase 19")
     kernels_json += recs
     n_elem = pr["ssa_s"].numel()
@@ -1640,7 +1592,6 @@ def phase19(dev, card: str, regs: dict) -> list:
         kernel_flops("bvp_backward", N, L, nm * B), near=near_fold,
         once=True))
     recs[-1]["ptxas"] = regs.get("bvp_backward_rows<16>")
-    turns = k5_turns(recs[-1], (fgp, fgm, fexpd, Pm, gm_, ang0))
     nrad = out["uu"].numel()
     n_near = int(near.sum())
     say("19", f"radiances {'x'.join(map(str, shape[:3]))} nstr 32: launches "
@@ -1654,7 +1605,7 @@ def phase19(dev, card: str, regs: dict) -> list:
               + f"; step {ms_step:.3f} ms = {nrad / ms_step * 1e3:.0f} "
               f"radiances/s ({nrad}); per kernel (K4 over the {len(calls)} "
               "modes, bit-equal to its plain version on every column): "
-              + records_line(recs) + "; " + turns + f" [{card}]")
+              + records_line(recs) + f" [{card}]")
     kernels_json += recs
     del p, ds, out, pr, modes, fgp, fgm, fexpd, dblk, alb, Pm, gm_, recs
     torch.cuda.empty_cache()
@@ -1676,8 +1627,6 @@ def phase20(dev, card: str, regs: dict) -> list:
     import torch
 
     from pyharp_tpu_torch.bench.problems import extra_problem
-    from pyharp_tpu_torch.rt.disort import kernels as K
-    from tools.wide_ab import in_turns
 
     t20 = time.perf_counter()
     kernels_json = []
@@ -1701,39 +1650,19 @@ def phase20(dev, card: str, regs: dict) -> list:
         near = resonance_margin(md) < RESONANCE_MARGIN
         path = f"aerosol 500x128x40 nstr {nstr}"
         recs = beam_records(path, res[0], pr, md, ds._ang0, near=near)
-        body = "bvp_forward_half" if N in K.HALF_WARP_N else "bvp_forward"
-        for rec, name in zip(recs, (f"stage1_general<{N}>", f"{body}<{N}>",
+        # K2's entry: the one body the library builds at this N (the
+        # half-warp team where pyharp_bvp_forward takes it, else one
+        # thread per column)
+        k2 = [k for k in (f"bvp_forward_half<{N}>", f"bvp_forward<{N}>")
+              if k in regs]
+        assert len(k2) == 1, (N, k2)
+        for rec, name in zip(recs, (f"stage1_general<{N}>", k2[0],
                                     f"bvp_backward<{N}>")):
             rec["ptxas"] = regs.get(name)
-        # K2's bodies at this N, each held to the plain version on every
-        # column as kernel_record holds K2, then timed in turns
-        sol = md["sol"]
-        fa = (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ds._ang0)
-        want = K.bvp_forward_plain(*fa)
-        errs = {}
-        for b in K.BVP_FORWARD_BODIES:
-            got = K.bvp_forward_body(b, *fa)
-            errs[b] = bvp_check([g[..., ~near] for g in got],
-                                [w[..., ~near] for w in want],
-                                f"K2 {b} on the {path} inputs, columns away "
-                                "from a beam resonance")
-            err = near_err(got, want, near) if bool(near.any()) else 0.0
-            assert err <= NEAR_RESONANCE_TOL, (b, path, err)
-            del got
-        del want
-        bodies = tuple(K.BVP_FORWARD_BODIES)
-        ms = in_turns({b: (lambda b=b: K.bvp_forward_body(b, *fa))
-                       for b in bodies}, bodies + bodies[::-1], TURN_REPS)
-        recs[1]["bodies_ms"] = ms
         say("20", flux_line(label, res, card) + "; per kernel, all columns: "
-                  + records_line(recs) + "; K2's bodies (the solves' "
-                  f"{body}), max|err|/max|ref| against the plain version "
-                  f"away from a resonance and ms in turns: " + "; ".join(
-                      f"{b} {errs[b]:.2e}, "
-                      + ", ".join(f"{t:.3f}" for t in ms[b]) + " ms"
-                      for b in bodies) + f" [{card}]")
+                  + records_line(recs) + f"; K2's body {k2[0]} [{card}]")
         kernels_json += recs
-        del p, ds, pr, md, sol, fa, recs, near
+        del p, ds, pr, md, recs, near
         torch.cuda.empty_cache()
     say("20", f"phase 20 took {time.perf_counter() - t20:.1f} s [{card}]")
     return kernels_json
@@ -1783,13 +1712,11 @@ def main() -> None:
              "over 32 columns: " + "; ".join(
                  f"bvp_backward_rows<{n}> {regs.get(f'bvp_backward_rows<{n}>')}"
                  for n in range(9, 17)))
-    say("1", "K2 at N = 5..7: the half-warp team (the solves' body at N = 7) "
-             + "; ".join(f"bvp_forward_half<{n}> "
-                         f"{regs.get(f'bvp_forward_half<{n}>')}"
-                         for n in (5, 6, 7))
-             + "; one thread per column (the solves' body at N = 5, 6) "
+    say("1", "K2 at N = 5..7: one thread per column at N = 5, 6 ("
              + "; ".join(f"bvp_forward<{n}> {regs.get(f'bvp_forward<{n}>')}"
-                         for n in (5, 6, 7)))
+                         for n in (5, 6))
+             + "); the half-warp team at N = 7 (bvp_forward_half<7> "
+             f"{regs.get('bvp_forward_half<7>')})")
 
     # ---- phase 2: K1 against its plain version -----------------------------
     k1_err = {}
@@ -1815,14 +1742,9 @@ def main() -> None:
             pr = ds._prepare(prop, bc, temf)
             md = ds._solve_mode(pr)
             sol = md["sol"]
-            fa = (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ang)
-            ref2 = K.bvp_forward_plain(*fa)
-            e2 = bvp_check((md["P"], md["g"]), ref2, f"K2 nstr {nstr} L {L}")
-            # every body of K2 at N = 5..7, the last block partial
-            e2b = {body: bvp_check(K.bvp_forward_body(body, *fa), ref2,
-                                   f"K2 {body} nstr {nstr} L {L}")
-                   for body in (K.BVP_FORWARD_BODIES
-                                if nstr // 2 in (5, 6, 7) else ())}
+            e2 = bvp_check((md["P"], md["g"]), K.bvp_forward_plain(
+                sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ang),
+                f"K2 nstr {nstr} L {L}")
             e3 = bvp_check(
                 K.bvp_backward_flux(sol.gp, sol.gm, sol.expd, md["P"], md["g"],
                                     md["ptop_p"], md["ptop_m"], md["pb_p"],
@@ -1831,9 +1753,7 @@ def main() -> None:
                                           md["g"], md["ptop_p"], md["ptop_m"],
                                           md["pb_p"], md["pb_m"], ang),
                 f"K3 nstr {nstr} L {L}")
-            msgs.append(f"nstr {nstr} L {L}: K2 {e2:.2e}" + "".join(
-                f" (body {b} {e:.2e})" for b, e in e2b.items())
-                + f" K3 {e3:.2e}")
+            msgs.append(f"nstr {nstr} L {L}: K2 {e2:.2e} K3 {e3:.2e}")
     say("3", "max|err|/max|ref| on 1024 (L 100; nstr 4/8/16) and 1018 (L 37) "
              "columns: "
              + "; ".join(msgs) + f" ({BVP_TOL})")

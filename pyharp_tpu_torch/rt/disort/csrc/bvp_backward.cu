@@ -20,23 +20,22 @@
 // layers; it reaches 77-83% of its bound (PERF.md).
 //
 // N = 9..16 (nstr 18..32): rows in parallel over a tile of 32 columns
-// (bvp_backward_rows_kernel).  One thread per column runs a chain of 3N
-// dependent memory round trips a layer, which only other columns hide:
-// that body (bvp_backward_thread_kernel, kept for timing in turns) reached
-// 6% of its bound at B = 4,096 and 36% at 16,384 on an H100 (PERF.md; the
-// rows kernel 77% and 85% there).  Here a block of 2N
-// warps owns 32 consecutive columns, lane c column b0 + c, so every load
-// of a row of an input is one 128-byte segment.  Warp w forms x_w =
-// g_w + P_w dx; after a barrier warp i < N forms the sum gp_i a and warp
-// N + i the sum (gm_i E) b, which the next layer's lanes add (dx_i = up_i
-// + dn_i) as they read them; x, E and the two sums pass through shared
-// memory.  Each thread holds one row of P and g, and one row of gp or gm
-// (warps w >= N also E_(w-N)), 2N + 2 floats: it loads the next layer's
-// as soon as this layer's are used, so a layer's loads are in flight for
-// a whole layer and the serial chain per layer is arithmetic and two
-// barriers.  Every sum is formed by one thread in the per-thread body's
-// order.  chip_smoke.py phase 1 prints the registers and spills of every
-// build.
+// (bvp_backward_rows_kernel).  One thread per column, the body before
+// this one, ran a chain of 3N dependent memory round trips a layer, which
+// only other columns hide: it reached 6% of its bound at B = 4,096 and 36%
+// at 16,384 on an H100 (PERF.md; the rows kernel 77% and 85% there).
+// Here a block of 2N warps owns 32 consecutive columns, lane c column
+// b0 + c, so every load of a row of an input is one 128-byte segment.
+// Warp w forms x_w = g_w + P_w dx; after a barrier warp i < N forms the
+// sum gp_i a and warp N + i the sum (gm_i E) b, which the next layer's
+// lanes add (dx_i = up_i + dn_i) as they read them; x, E and the two sums
+// pass through shared memory.  Each thread holds one row of P and g, and
+// one row of gp or gm (warps w >= N also E_(w-N)), 2N + 2 floats: it loads
+// the next layer's as soon as this layer's are used, so a layer's loads
+// are in flight for a whole layer and the serial chain per layer is
+// arithmetic and two barriers.  Every sum is formed by one thread in the
+// order of bvp_layer_coeffs and bvp_layer_carry.  chip_smoke.py phase 1
+// prints the registers and spills of every build.
 
 #include "common.cuh"
 
@@ -70,71 +69,6 @@ bvp_backward_kernel(const float* __restrict__ gp_in,
       b_out[i * LB + o] = x[N + i];
     }
     bvp_layer_carry<N>(gp_in, gm_in, e_in, LB, o, x, dx);
-  }
-}
-
-// An empty asm with a memory clobber: no load or store moves across it.
-__device__ __forceinline__ void fence_loads() { asm volatile("" ::: "memory"); }
-
-// The per-thread sweep at N = 9..16, the body before the rows kernel (kept
-// to time the two in turns), with each row's loads kept behind the
-// previous row's use: fully unrolled, the compiler otherwise emits all
-// 2N^2 loads of P (and 2N^2 of gp, gm) before the first product and holds
-// them, 255 registers and up to 3 KB of spills at N = 16.  The arithmetic
-// and its order are bvp_layer_coeffs' and bvp_layer_carry's.  Each row's
-// stores of a or b sit between the fences: with the fences alone, inside
-// the shared layer steps and the stores after the rows, ptxas still
-// hoisted the loads (255 registers and 8 B-3.2 KB of spills at N = 11..16).
-template <int N>
-__global__ void __launch_bounds__(64)
-bvp_backward_thread_kernel(const float* __restrict__ gp_in,
-                         const float* __restrict__ gm_in,
-                         const float* __restrict__ e_in,
-                         const float* __restrict__ p_in,
-                         const float* __restrict__ g_in,
-                         float* __restrict__ a_out, float* __restrict__ b_out,
-                         int L, int64_t B) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  constexpr int M = 2 * N;
-  const int64_t LB = static_cast<int64_t>(L) * B;
-
-  float dx[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) dx[i] = 0.0f;
-
-  for (int l = L - 1; l >= 0; --l) {
-    const int64_t o = static_cast<int64_t>(l) * B + b;
-    float x[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const float* p = p_in + (i * N) * LB + o;
-      float acc = p[0] * dx[0];
-#pragma unroll
-      for (int k = 1; k < N; ++k) acc = acc + p[k * LB] * dx[k];
-      x[i] = g_in[i * LB + o] + acc;
-      if (i < N) {
-        a_out[i * LB + o] = x[i];
-      } else {
-        b_out[(i - N) * LB + o] = x[i];
-      }
-      fence_loads();
-    }
-    float E[N];
-#pragma unroll
-    for (int k = 0; k < N; ++k) E[k] = e_in[k * LB + o];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float up = gp_in[(i * N) * LB + o] * x[0];
-      float dn = (gm_in[(i * N) * LB + o] * E[0]) * x[N];
-#pragma unroll
-      for (int k = 1; k < N; ++k) {
-        up = up + gp_in[(i * N + k) * LB + o] * x[k];
-        dn = dn + (gm_in[(i * N + k) * LB + o] * E[k]) * x[N + k];
-      }
-      dx[i] = up + dn;
-      fence_loads();
-    }
   }
 }
 
@@ -246,19 +180,6 @@ int launch(const float* gp, const float* gm, const float* expd,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The per-thread body at N = 9..16, timed beside the rows kernel.
-template <int N>
-int launch_thread(const float* gp, const float* gm, const float* expd,
-                  const float* p, const float* g, float* a, float* b, int L,
-                  int64_t B, cudaStream_t stream) {
-  if (B == 0 || L == 0) return 0;
-  constexpr int kThreads = 64;
-  const auto blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  bvp_backward_thread_kernel<N><<<blocks, kThreads, 0, stream>>>(
-      gp, gm, expd, p, g, a, b, L, B);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Shapes: gp, gm (N,N,L,B); expd (N,L,B); p (2N,N,L,B); g (2N,L,B) from
@@ -289,23 +210,3 @@ PYHARP_API int pyharp_bvp_backward(int n, const float* gp, const float* gm,
   }
 }
 
-// As pyharp_bvp_backward at n = 9..16, through the per-thread body that
-// came before the rows kernel: chip_smoke.py times the two in turns.
-PYHARP_API int pyharp_bvp_backward_thread(int n, const float* gp,
-                                          const float* gm, const float* expd,
-                                          const float* p, const float* g,
-                                          float* a, float* b, int L,
-                                          long long B, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (n) {
-    case 9: return launch_thread<9>(gp, gm, expd, p, g, a, b, L, B, s);
-    case 10: return launch_thread<10>(gp, gm, expd, p, g, a, b, L, B, s);
-    case 11: return launch_thread<11>(gp, gm, expd, p, g, a, b, L, B, s);
-    case 12: return launch_thread<12>(gp, gm, expd, p, g, a, b, L, B, s);
-    case 13: return launch_thread<13>(gp, gm, expd, p, g, a, b, L, B, s);
-    case 14: return launch_thread<14>(gp, gm, expd, p, g, a, b, L, B, s);
-    case 15: return launch_thread<15>(gp, gm, expd, p, g, a, b, L, B, s);
-    case 16: return launch_thread<16>(gp, gm, expd, p, g, a, b, L, B, s);
-    default: return PYHARP_UNSUPPORTED_N;
-  }
-}

@@ -27,17 +27,15 @@
 // team's time on aerosol_16str_beam's configuration on an H100 (PERF.md).
 //
 // N = 7 (nstr 14): a team of 16 lanes per column, two columns per warp
-// (bvp_forward_half_kernel, compiled at N = 5..7 and exported as
-// pyharp_bvp_forward_half, beside the per-thread body at those N as
-// pyharp_bvp_forward_thread, to time them in turns).  One thread spills
-// 5 KB of the 14 x 22 system and took ~2.2x as long on an H100 (PERF.md);
-// a team of 2N lanes would straddle a warp.  The team does at 16 lanes what
-// bvp_forward_wide.cu does at 32: the system's rows and block columns sit
-// at fixed positions, the upper block's at 0..N-1 and the lower block's at
-// 8..8+N-1; lane p owns the block column at position p, lanes p < N also
-// unit column p and lane 8 the right-hand side.  Loops run over the 16
-// positions and skip the empty ones, so every register index is a constant
-// and the elimination is the unpadded one, step for step.  The swap bits
+// (bvp_forward_half_kernel; one thread spills 5 KB of the 14 x 22 system
+// and took ~2.2x as long on an H100, PERF.md; a team of 2N lanes would
+// straddle a warp).  The team does at 16 lanes what bvp_forward_wide.cu
+// does at 32: the system's rows and block columns sit at fixed positions,
+// the upper block's at 0..N-1 and the lower block's at 8..8+N-1; lane p
+// owns the block column at position p, lanes p < N also unit column p and
+// lane 8 the right-hand side.  Loops run over the 16 positions and skip
+// the empty ones, so every register index is a constant and the
+// elimination is the unpadded one, step for step.  The swap bits
 // of pivot c are the records of the pivot column: lane c puts its column
 // in shared memory, lane r takes |a_r|, and row r swaps where |a_r| beats
 // the prefix max of |a_k|, c <= k < r (four shuffles, fmaxf skipping NaNs,
@@ -110,7 +108,7 @@ int launch(const float* gp, const float* gm, const float* expd,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the half-warp team (N = 5, 6, 7) -------------------------------------
+// ---- the half-warp team (N = 7) -----------------------------------------
 
 constexpr int kHalfLanes = 16;
 constexpr int kHalfLow = 8;     // position of the lower block's first row
@@ -497,36 +495,3 @@ PYHARP_API int pyharp_bvp_forward(int n, const float* gp, const float* gm,
   }
 }
 
-// As pyharp_bvp_forward at n = 5, 6, 7, through the half-warp team or the
-// per-thread body: chip_smoke.py times the two in turns.
-PYHARP_API int pyharp_bvp_forward_half(int n, const float* gp,
-                                       const float* gm, const float* expd,
-                                       const float* dblk, const float* albedo,
-                                       float* p_out, float* g_out, int L,
-                                       long long B, const float* wmu,
-                                       void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (n < 5 || n > 7) return PYHARP_UNSUPPORTED_N;
-  if (B == 0 || L == 0) return 0;
-  switch (n) {
-    case 5: return launch_half<5>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<5>(wmu), s);
-    case 6: return launch_half<6>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<6>(wmu), s);
-    default: return launch_half<7>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<7>(wmu), s);
-  }
-}
-
-PYHARP_API int pyharp_bvp_forward_thread(int n, const float* gp,
-                                         const float* gm, const float* expd,
-                                         const float* dblk,
-                                         const float* albedo, float* p_out,
-                                         float* g_out, int L, long long B,
-                                         const float* wmu, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (n < 5 || n > 7) return PYHARP_UNSUPPORTED_N;
-  if (B == 0 || L == 0) return 0;
-  switch (n) {
-    case 5: return launch<5>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<5>(wmu), s);
-    case 6: return launch<6>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<6>(wmu), s);
-    default: return launch<7>(gp, gm, expd, dblk, albedo, p_out, g_out, L, B, host_wmu<7>(wmu), s);
-  }
-}

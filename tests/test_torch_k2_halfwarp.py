@@ -1,6 +1,7 @@
 """A float32 numpy model of K2's half-warp team at N = 5, 6, 7
-(``csrc/bvp_forward.cu``, ``bvp_forward_half_kernel``), lane by lane and
-position by position, held against the unpadded team model of
+(``csrc/bvp_forward.cu``, ``bvp_forward_half_kernel``, a template over
+N <= 8 that the library builds at N = 7, where the solves take it), lane
+by lane and position by position, held against the unpadded team model of
 ``tests/test_torch_team_pivot.py``, the warp-per-column model of
 ``tests/test_torch_wide_team.py`` and the plain
 ``kernels.bvp_forward_plain``; and the port's plain K2 + K5 at nstr 10,

@@ -1,5 +1,6 @@
-"""Time K1, K4 and K2 at N = 16 (nstr 32), the solve steps they run in,
-and the plain LU against another tree's, in turns, on the card.
+"""Time K1, K4 and K2 at N = 16 (nstr 32), K5 at N = 9..16, K2 at N = 5..7,
+the solve steps they run in, and the plain LU against another tree's, in
+turns, on the card.
 
     git archive <commit> pyharp_tpu_torch/rt/disort | tar -x -C _checkout/parent
     python3 tools/wide_ab.py --parent _checkout/parent
@@ -21,6 +22,16 @@ times the tool against itself.  Each part times its calls over
   g = 0.8, a beam: K4 once, K2 once; K4 also without its Jacobi sweeps)
   and of the radiances at nstr 32 (32 x 64 x 40: K4 at each of the 32
   modes, K2 on the 31 folded modes).
+- ``k5``, in the same order and checked the same way (within the BVP
+  bound; whether the two are bit-equal is recorded): K5 on the inputs of
+  the five paths of ``chip_smoke.py`` phase 19, the isotropic thermal
+  solve (8 x 2048 x 20, nstr 32), the aerosol configuration at nstr 22
+  (32 x 128 x 20, HG g = 0.8), the isotropic beam (500 x 64 x 20, nstr
+  32), aerosol_32str_beam and the radiances' folded modes at nstr 32.
+- ``k2_mid``, in the same order: K2 on the inputs of aerosol_16str_beam's
+  configuration (500 x 128 x 40, HG g = 0.8, a beam) at nstr 10, 12 and
+  14, the paths of ``chip_smoke.py`` phase 20, checked within the BVP
+  bound away from a beam resonance and within 1e-3 of max|ref| near one.
 - ``steps``: the solve steps whose glue calls ``solver._umv`` (the node
   intensities at N > 4), each in three setups: the parent's library and
   the parent's ``_umv`` (``parent``), this tree's library and the
@@ -53,19 +64,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 DISORT = Path("pyharp_tpu_torch/rt/disort")
-PARTS = ("kernels", "steps", "plain_lu")
-
-
-def in_turns(fns: dict, turns, reps: int) -> dict[str, list[float]]:
-    """Mean device ms of each ``fns[name]()`` over ``reps`` calls, once for
-    every entry of ``turns`` in its order (a name may come more than
-    once, as in parent, new, new, parent)."""
-    from chip_smoke import cuda_ms
-
-    ms = {}
-    for name in turns:
-        ms.setdefault(name, []).append(cuda_ms(fns[name], reps))
-    return ms
+PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu")
 
 
 def parent_function(path: Path, name: str, module):
@@ -95,7 +94,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("wide_ab: needs a CUDA card")
-    from chip_smoke import bvp_check, ptxas_summary, run
+    from chip_smoke import (NEAR_RESONANCE_TOL, RESONANCE_MARGIN, bvp_check,
+                            cuda_ms, near_err, ptxas_summary,
+                            resonance_margin, run)
     from pyharp_tpu_torch.bench.problems import (bench_problem, extra_problem,
                                                  radiance_problem)
     from pyharp_tpu_torch.rt.disort import disort as D
@@ -114,7 +115,10 @@ def main() -> None:
         plib = fut.result()
     regs = {f"{who}:{k}": v
             for who, lb in (("new", lib), ("parent", plib))
-            for k, v in ptxas_summary(lb.ptxas_log).items() if "wide" in k}
+            for k, v in ptxas_summary(lb.ptxas_log).items()
+            if "wide" in k or k.startswith("bvp_backward")
+            or k in ("bvp_forward<5>", "bvp_forward<6>", "bvp_forward<7>",
+                     "bvp_forward_half<7>")}
     print(f"built in {time.perf_counter() - t0:.1f} s; ptxas: {regs}",
           flush=True)
     libs = {"new": lib, "parent": plib}
@@ -124,11 +128,10 @@ def main() -> None:
         K._library = libs[name]
 
     def timed(what, fn, setups, turns, reps):
-        def call(name):
+        ms = {}
+        for name in turns:
             setups[name]()
-            return fn()
-        ms = in_turns({name: (lambda name=name: call(name))
-                       for name in setups}, turns, reps)
+            ms.setdefault(name, []).append(cuda_ms(fn, reps))
         setups["new"]()
         res[what] = ms
         print(f"{what}: {ms} [{card}]", flush=True)
@@ -227,6 +230,80 @@ def main() -> None:
         timed("k2_folded", k2f, lib_setups, lib_turns, args.reps)
         del p, ds, pr, modes, fgp, fgm, fexpd, dblk, alb, calls, zero
         torch.cuda.empty_cache()
+
+    if "k5" in parts:
+        # K5 on the inputs of phase 19's five paths
+        use("new")
+        for what, make, fold in (
+                ("k5_iso_thermal_8x2048x20_nstr32", lambda: bench_problem(
+                    8, 2048, 20, 32, torch.float32, dev, "cuda"), False),
+                ("k5_aerosol_32x128x20_nstr22", lambda: extra_problem(
+                    32, 128, 20, 22, g=0.8, device=dev, kernel="cuda"),
+                 False),
+                ("k5_iso_beam_500x64x20_nstr32", lambda: extra_problem(
+                    500, 64, 20, 32, beam=True, device=dev, kernel="cuda"),
+                 False),
+                ("k5_aerosol_32str_beam_500x128x40", lambda: extra_problem(
+                    500, 128, 40, 32, g=0.8, device=dev, kernel="cuda"),
+                 False),
+                ("k5_radiances_folded_32x64x40_nstr32",
+                 lambda: radiance_problem(torch.float32, dev, "cuda",
+                                          shape=(32, 64, 40, 32)), True)):
+            p = make()
+            ds = p.disort
+            if fold:
+                modes = ds._modes_batched(ds._prepare(p.prop, p.bc, None))
+                fgp, fgm, fexpd, dblk, alb = modes["fold"]
+                P, g = K.bvp_forward(fgp, fgm, fexpd, dblk, alb, ds._ang0)
+                a5 = (fgp, fgm, fexpd, P, g, ds._ang0)
+                del modes, dblk, alb
+            else:
+                md = ds._solve_mode(ds._prepare(*p.args))
+                sol = md["sol"]
+                a5 = (sol.gp, sol.gm, sol.expd, md["P"], md["g"], ds._ang0)
+                del md, sol
+            k5 = lambda: K.bvp_backward(*a5)
+            ref = k5()
+            use("parent")
+            got = k5()
+            bvp_check(got, ref, f"K5 of the parent on {what}")
+            res[what + "_bit_equal_to_new"] = all(
+                bool(torch.equal(x, y)) for x, y in zip(got, ref))
+            del got, ref
+            timed(what, k5, lib_setups, lib_turns, args.reps)
+            del p, ds, a5, k5
+            torch.cuda.empty_cache()
+
+    if "k2_mid" in parts:
+        # K2 on the inputs of phase 20's paths
+        for nstr in (10, 12, 14):
+            use("new")
+            p = extra_problem(500, 128, 40, nstr, g=0.8, device=dev,
+                              kernel="cuda")
+            ds = p.disort
+            pr = ds._prepare(*p.args)
+            md = ds._solve_mode(pr)
+            sol = md["sol"]
+            a2 = (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"],
+                  ds._ang0)
+            near = resonance_margin(md) < RESONANCE_MARGIN
+            del pr, md, sol
+            k2 = lambda: K.bvp_forward(*a2)
+            ref = k2()
+            use("parent")
+            got = k2()
+            what = f"k2_aerosol_500x128x40_nstr{nstr}"
+            bvp_check([x[..., ~near] for x in got],
+                      [y[..., ~near] for y in ref],
+                      f"K2 of the parent on {what}, away from a resonance")
+            err = near_err(got, ref, near) if bool(near.any()) else 0.0
+            assert err <= NEAR_RESONANCE_TOL, (what, err)
+            res[what + "_bit_equal_to_new"] = all(
+                bool(torch.equal(x, y)) for x, y in zip(got, ref))
+            del got, ref
+            timed(what, k2, lib_setups, lib_turns, args.reps)
+            del p, ds, a2, near, k2
+            torch.cuda.empty_cache()
 
     if "steps" in parts:
         old_umv = parent_function(args.parent / DISORT / "solver.py", "_umv",
