@@ -8,7 +8,7 @@ The paths run through the hand-written CUDA kernels of
 ``Disort.forward``: the isotropic thermal problem of ``bench.py`` (8
 g-points x 8192 columns x 100 layers, 8 streams) and amars_lw (kernels K1,
 K2, K3); the 16-stream aerosol problem with a beam of ``bench_extra.py``
-(500 x 128 x 40, K4, K2, K5), and the same at 32 streams; its 4-stream line-by-line beam problem (500 x
+(500 x 128 x 40, K4, K2, K5), and the same at 32, 48 and 64 streams; its 4-stream line-by-line beam problem (500 x
 512 x 40, K1's beam variant, K2, K3); amars_sw (K1 beam, K2, K3); the YAML
 ``Radiation`` layer.  The radiances of ``Disort.intensities``: every
 azimuthal mode of ``bench_extra.py``'s radiance problem (32 x 512 x 40,
@@ -23,7 +23,9 @@ or more:
    nstr up to 16; K1, K4 and K2 at N = 9..16 as one body each,
    ``<kernel>_wide<9..16>``: K4 a team of 4 lanes per element, K2 a warp
    per column, each on a line of its own; K5 at each N = 9..16 as
-   ``bvp_backward_rows``), K2 as its bodies (one thread per column for
+   ``bvp_backward_rows``; K1, K4, K2 and K5 at N = 17..32 as one body
+   each, ``<kernel>_big<17..32>``, a warp per element or column), K2 as
+   its bodies (one thread per column for
    N <= 6, ``bvp_forward_half`` for N = 7, ``bvp_forward_team`` for
    N = 8) and K6 as
    its instantiations per mode (``bvp_fused_ab`` / ``_flux``, one thread
@@ -164,9 +166,7 @@ or more:
     ``tests/test_oracle_mc.py``'s three Monte Carlo cases at 4e6 photons
     within 5e-3, the H-function anchor within 2e-3, and the whole matrix
     at 1e6 photons;
-19. 18 to 32 streams: ``kernels.route`` sends float32 CUDA tensors at
-    every nstr 2..32 to the kernels, and nstr 34 raises before any launch;
-    at every nstr 18..32, K1 and its beam variant (L 37 x B 4096, ssa 0
+19. 18 to 32 streams: at every nstr 18..32, K1 and its beam variant (L 37 x B 4096, ssa 0
     and 0.999999 entries) and K4 (thermal x beam at m = 0, and m = 1)
     bit-equal to their plain versions (asserted; K4 also on 37 x 509
     elements at nstr 18 and 32, its last block partial), K4's float32 distance
@@ -187,14 +187,34 @@ or more:
     Jacobi sweeps timed beside, and ``torch.linalg.eigh`` once on as
     many symmetric 16 x 16 matrices as a yardstick of the sweeps alone),
     and ``Disort.intensities`` at nstr 32
-    (32 x 64 x 40: K4 32 times, held bit-equal at every mode m = 0..31,
-    K2 and K5 twice, held on the folded modes; float64 with float32's
+    (32 x 64 x 40: K4 32 times, held bit-equal at every mode m = 0..31
+    to the plain version, which takes the modes m >= 1 in one pass, K2
+    and K5 twice, held on the folded modes; float64 with float32's
     resonance floor on every 4th wave);
 20. ``aerosol_16str_beam``'s configuration (500 x 128 x 40, HG g = 0.8, a
     beam) at nstr 10, 12 and 14 through ``Disort.forward`` under
     ``kernel="auto"``: K4, K2 and K5 once each; the fluxes against the
     float64 plain path as phase 7 holds them; K4, K2 and K5 against their
-    plain versions on the path's inputs, every column, timed.
+    plain versions on the path's inputs, every column, timed;
+21. 34 to 64 streams: ``kernels.route`` sends float32 CUDA tensors at
+    every nstr 2..64 to the kernels, and nstr 66 raises before any launch;
+    at nstr 34, 40, 48, 50, 64 (N = 17, 20, 24, 25, 32), K1 and its beam
+    variant and K4 (thermal x beam at m = 0, m = 1, at nstr 64 also m =
+    31 and 63) bit-equal to their plain versions on L 7 x B 1017 elements
+    (asserted), K2 and K5 on 1017 columns x 8 layers to phase 3's bound;
+    then through ``kernel="auto"``, each path's fluxes against float64 as
+    phase 7 holds them, its peak device memory and step, and each kernel
+    against its plain version on the path's inputs, every column, timed
+    (the plain versions once): aerosol_16str_beam's configuration at
+    nstr 64 and 48 (HG g 0.8, a beam, 128 columns, 40 layers; its 500
+    waves cut to the first 100 and 200, ``AEROSOL_BIG``; float64 on every
+    10th wave; K4, K2, K5), the isotropic thermal solve at nstr 64 (8 x
+    2048 x 20; K1, K2, K5), the isotropic beam (500 x 64 x 20; K1 beam,
+    K2, K5; float64 on every 10th wave) and ``Disort.intensities`` at
+    nstr 64 (8 x 64 x 20: K4 64 times, held bit-equal at every mode, K2
+    and K5 twice, held on the folded modes; radiances against float64
+    with float32's resonance floor on every 10th wave, 1e-4 of each
+    column's max|uu| away from a resonance).
 
 The problems, the roofline counts and the card's peaks come from
 ``pyharp_tpu_torch.bench`` (``problems``, ``roofline_run``, ``profile``).
@@ -238,6 +258,14 @@ WIDE_SOURCES = {
     "stage1_isotropic_beam": CSRC + "stage1_isotropic_wide.cu",
     "stage1_general": CSRC + "stage1_general_wide.cu",
     "bvp_forward": CSRC + "bvp_forward_wide.cu",
+}
+# the sources of the bodies at N = 17..32 (kernels.WIDE_MAX_N < N)
+BIG_SOURCES = {
+    "stage1_isotropic": CSRC + "stage1_isotropic_big.cu",
+    "stage1_isotropic_beam": CSRC + "stage1_isotropic_big.cu",
+    "stage1_general": CSRC + "stage1_general_big.cu",
+    "bvp_forward": CSRC + "bvp_forward_big.cu",
+    "bvp_backward": CSRC + "bvp_backward_big.cu",
 }
 AMARS_SW_TOA = 408.17
 
@@ -331,7 +359,8 @@ def bvp_check(got, ref, what: str) -> float:
 def ptxas_summary(log: str) -> dict[str, str]:
     """'kernel<N>' -> 'R regs, F B stack, S B spill st, L B spill ld' from
     ptxas -v; the bodies of K1, K4 and K2 at N = 9..16 as
-    'kernel<9..16>'."""
+    'kernel_wide<9..16>', those of K1, K4, K2 and K5 at N = 17..32 as
+    'kernel_big<17..32>'."""
     out, cur, regs, spills = {}, None, {}, {}
     for line in log.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?$",
@@ -345,6 +374,9 @@ def ptxas_summary(log: str) -> dict[str, str]:
                           m.group(1))
             w = re.search(r"(stage1_isotropic|stage1_general|bvp_forward)"
                           r"_wide_kernel(ILb([01])E)?", m.group(1))
+            big = re.search(r"(stage1_isotropic|stage1_general|bvp_forward|"
+                            r"bvp_backward)_big_kernel(ILb([01])E)?",
+                            m.group(1))
             cur = None
             if k:
                 # the second template argument: K1's beam flag, K6's mode,
@@ -358,6 +390,9 @@ def ptxas_summary(log: str) -> dict[str, str]:
             elif w:
                 beam = "_beam" if w.group(3) == "1" else ""
                 cur = f"{w.group(1)}_wide{beam}<9..16>"
+            elif big:
+                beam = "_beam" if big.group(3) == "1" else ""
+                cur = f"{big.group(1)}_big{beam}<17..32>"
             continue
         if cur is None:
             continue
@@ -433,7 +468,9 @@ def kernel_record(name, path, launches, fn, plain, args, kw, check, tol,
     src, tpu = KERNEL_TABLE[name]
     N = next(t for t in (*args, *got) if isinstance(t, torch.Tensor)
              and t.dim() == 4).shape[1]
-    if N > K.NARROW_MAX_N:
+    if N > K.WIDE_MAX_N:
+        src = BIG_SOURCES[name]
+    elif N > K.NARROW_MAX_N:
         src = WIDE_SOURCES.get(name, src)
     rec = dict(
         name=name, route="cuda", source=src, replaces=tpu, launches=launches,
@@ -1014,6 +1051,44 @@ def beam_records(path, launches, pr, md, ang, near=None,
             kernel_flops("bvp_backward", N, L, B), near=near, once=once))
     return recs
 
+def radiance_k4(ds, pr, modes):
+    """K4 at every mode of a radiance solve (no thermal source) as the path
+    launches it, m = 0 then the modes m >= 1 with their zero thermal
+    inputs, and its plain version: m = 0, then the modes m >= 1 in one pass
+    (``kernels.stage1_general_modes_plain``, the bits of a call per mode).
+    Returns ``(kernel, plain, lam00)``, the first two taking no arguments
+    and giving every mode's outputs in one tuple."""
+    import torch
+
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from pyharp_tpu_torch.rt.disort.legendre import lepoly
+
+    ang0 = ds._ang0
+    lam00 = lepoly(pr["umu0"], 0, ang0.lam_tables.shape[0] - 1).contiguous()
+    angs = [ds._angles(m) for m in modes["ms"]]
+    s4 = (pr["ssa_s"], pr["pmom_s"], pr["dtau"])
+    b4 = dict(fbeam=pr["fbeam"], mur=modes["mur"])
+    zero = torch.zeros_like(pr["ssa_s"])
+
+    def kernel():
+        outs = K.stage1_general(*s4, pr["b_top_lay"], pr["slope"], ang0,
+                                thermal=False, lam0=lam00, **b4)
+        for a, l0 in zip(angs, modes["lam0"]):
+            outs += K.stage1_general(*s4, zero, zero, a, thermal=False,
+                                     lam0=l0, **b4)
+        return outs
+
+    def plain():
+        outs = K.stage1_general_plain(*s4, pr["b_top_lay"], pr["slope"],
+                                      ang0, thermal=False, lam0=lam00, **b4)
+        for o in K.stage1_general_modes_plain(*s4, angs, lam0s=modes["lam0"],
+                                              **b4):
+            outs += o
+        return outs
+
+    return kernel, plain, lam00
+
+
 # ---- 18 to 32 streams (phase 19) --------------------------------------------
 
 # every nstr with a body of N = 9..16 (csrc/*_wide.cu, K5 instantiated)
@@ -1185,7 +1260,7 @@ def k1_floor_text(N: int, L: int, B: int, clock_mhz: float) -> str:
 
 
 def phase19(dev, card: str, regs: dict) -> list:
-    """Phase 19, 18 to 32 streams: the route, every new N against the plain
+    """Phase 19, 18 to 32 streams: every N = 9..16 against the plain
     versions, then the paths through the bodies of N = 9..16; returns the
     entries of the ``kernels`` line."""
     import torch
@@ -1203,21 +1278,6 @@ def phase19(dev, card: str, regs: dict) -> list:
     kernels_json = []
     clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                            "--format=csv,noheader,nounits"]).splitlines()[0])
-    # the route: every nstr 2..32 in float32 on the card to the kernels, 34
-    # raises before any launch
-    assert all(K.route("auto", "cuda", torch.float32, n) == "cuda"
-               for n in range(1, 17))
-    p = extra_problem(2, 8, 4, 34, g=0.8, device=dev, kernel="auto")
-    K.reset_launches()
-    try:
-        p.disort.forward(p.prop, p.bc)
-        raise AssertionError("nstr 34 in float32 on the card did not raise")
-    except ValueError as exc:
-        assert "no CUDA kernel for N = 17" in str(exc), exc
-    assert not any(K.launch_counts().values()), K.launch_counts()
-    say("19", "route: float32 CUDA tensors at nstr 2..32 -> 'cuda'; nstr 34 "
-              "raises before any launch")
-
     # each new N: K1 (thermal, beam) and K4 (thermal x beam, m = 0; m = 1
     # with a beam; every mode at nstr 32 on the radiance path below)
     # bit-equal to their plain versions, K4's distance from float64 (8
@@ -1549,31 +1609,17 @@ def phase19(dev, card: str, regs: dict) -> list:
     # problem has no thermal source), then m = 1..31 with the modes' zero
     # thermal inputs; every column, bit-equal (asserted)
     ang0 = ds._ang0
-    zero = torch.zeros_like(pr["ssa_s"])
-    lam00 = lepoly(pr["umu0"], 0, ang0.lam_tables.shape[0] - 1).contiguous()
-    calls = [(pr["b_top_lay"], pr["slope"], ang0, lam00)] + [
-        (zero, zero, ds._angles(m), l0)
-        for m, l0 in zip(modes["ms"], modes["lam0"])]
-
-    def k4_modes(k4):
-        def run():
-            return tuple(t for bt, sl, a, l0 in calls
-                         for t in k4(pr["ssa_s"], pr["pmom_s"], pr["dtau"],
-                                     bt, sl, a, thermal=False,
-                                     fbeam=pr["fbeam"], mur=modes["mur"],
-                                     lam0=l0))
-        return run
-
+    k4, k4_plain, lam00 = radiance_k4(ds, pr, modes)
     nmom = pr["pmom_s"].shape[1]
     recs = [kernel_record(
         "stage1_general", path + f", modes 0..{nm}",
-        launches["stage1_general"], k4_modes(K.stage1_general),
-        k4_modes(K.stage1_general_plain), (), {}, stage1_exact, STAGE1_TOL,
-        len(calls) * kernel_flops("stage1_general", N, L, B, nmom=nmom,
-                                  sweeps=K.kernel_sweeps(N), thermal=False,
-                                  beam=True),
+        launches["stage1_general"], k4, k4_plain, (), {}, stage1_exact,
+        STAGE1_TOL,
+        (nm + 1) * kernel_flops("stage1_general", N, L, B, nmom=nmom,
+                                sweeps=K.kernel_sweeps(N), thermal=False,
+                                beam=True),
         reads=[pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["fbeam"],
-               modes["mur"]] * len(calls) + [lam00, modes["lam0"]],
+               modes["mur"]] * (nm + 1) + [lam00, modes["lam0"]],
         once=True)]
     recs[0].update(bit_equal=True,
                    ptxas=regs.get("stage1_general_wide<9..16>"))
@@ -1603,7 +1649,7 @@ def phase19(dev, card: str, regs: dict) -> list:
                   f"{f:.2e} on the {n_near} near ones (<= {NEAR_RESONANCE_TOL})"
                   for k, (a, f, _, _) in res19.items())
               + f"; step {ms_step:.3f} ms = {nrad / ms_step * 1e3:.0f} "
-              f"radiances/s ({nrad}); per kernel (K4 over the {len(calls)} "
+              f"radiances/s ({nrad}); per kernel (K4 over the {nm + 1} "
               "modes, bit-equal to its plain version on every column): "
               + records_line(recs) + f" [{card}]")
     kernels_json += recs
@@ -1668,6 +1714,263 @@ def phase20(dev, card: str, regs: dict) -> list:
     return kernels_json
 
 
+# ---- 34 to 64 streams (phase 21) --------------------------------------------
+
+# the stream counts phase 21 holds the bodies of N = 17..32 at, each to its
+# plain version: N = 17, 20, 24, 25, 32 (odd and even, the ends)
+NSTR_BIG = (34, 40, 48, 50, 64)
+# (L, B) of those checks: no multiple of K1's 4 or K4's 2 elements a block,
+# and B no multiple of K2's 2 columns a block or K5's tile of 32
+BIG_CHECK_SHAPE = (7, 1017)
+# the full-width aerosol paths, (nstr, waves): aerosol_16str_beam's 500
+# waves cut to what the card's memory holds beside the plain versions that
+# check every column
+AEROSOL_BIG = ((64, 100), (48, 200))
+
+
+def phase21(dev, card: str, regs: dict) -> list:
+    """Phase 21, 34 to 64 streams: the route, every body of N = 17..32
+    against its plain version at ``NSTR_BIG``, then the four full-width
+    paths of this range through ``kernel="auto"``; returns the entries of
+    the ``kernels`` line."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import (bench_problem, extra_problem,
+                                                 radiance_problem,
+                                                 stage1_inputs)
+    from pyharp_tpu_torch.bench.roofline_run import kernel_flops
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from pyharp_tpu_torch.rt.disort.legendre import lepoly
+    from pyharp_tpu_torch.rt.disort.solver import make_static_angles
+
+    t21 = time.perf_counter()
+    kernels_json = []
+    big = {n: regs.get(n.replace("_beam", "") + "_big"
+                       + ("_beam" if n.endswith("_beam") else "")
+                       + "<17..32>")
+           for n in ("stage1_isotropic", "stage1_isotropic_beam",
+                     "stage1_general", "bvp_forward", "bvp_backward")}
+
+    def ptxas(recs):
+        for r in recs:
+            r["ptxas"] = big[r["name"]]
+        return recs
+
+    # the route: every nstr 2..64 in float32 on the card to the kernels, 66
+    # raises before any launch
+    assert all(K.route("auto", "cuda", torch.float32, n) == "cuda"
+               for n in range(1, 33))
+    p = extra_problem(2, 8, 4, 66, g=0.8, device=dev, kernel="auto")
+    K.reset_launches()
+    try:
+        p.disort.forward(p.prop, p.bc)
+        raise AssertionError("nstr 66 in float32 on the card did not raise")
+    except ValueError as exc:
+        assert "no CUDA kernel for N = 33" in str(exc), exc
+    assert not any(K.launch_counts().values()), K.launch_counts()
+    del p
+    say("21", "route: float32 CUDA tensors at nstr 2..64 -> 'cuda'; nstr 66 "
+              "raises before any launch")
+
+    # each body against its plain version: K1 (thermal, beam) and K4
+    # (thermal x beam at m = 0, m = 1 with a beam, at nstr 64 also m = 31
+    # and 63) bit-equal on BIG_CHECK_SHAPE's elements, K2 and K5 on its B
+    # columns x 8 layers
+    msgs = []
+    L, B = BIG_CHECK_SHAPE
+    for nstr in NSTR_BIG:
+        N = nstr // 2
+        ang = make_static_angles(nstr, nstr, 0)
+        rng = np.random.default_rng(900 + nstr)
+        ssa, dtau, btop, slope = stage1_inputs(L, B, seed=910 + nstr,
+                                               device=dev)
+        fbeam = torch.tensor(rng.uniform(0.5, 4.0, B), dtype=torch.float32,
+                             device=dev)
+        mu0 = torch.tensor(rng.uniform(0.1, 1.0, B), dtype=torch.float32,
+                           device=dev)
+        mur = mu0[None].expand(L, B).contiguous()
+        stage1_exact(K.stage1_isotropic(ssa, dtau, btop, slope, ang),
+                     K.stage1_isotropic_plain(ssa, dtau, btop, slope, ang),
+                     f"K1 nstr {nstr}")
+        s1b = (ssa, dtau, btop, slope, fbeam, mur, ang)
+        stage1_exact(K.stage1_isotropic_beam(*s1b),
+                     K.stage1_isotropic_beam_plain(*s1b), f"K1 beam nstr {nstr}")
+        pm = torch.tensor(
+            np.stack([hg_moments(0.2 if b % 2 else 0.8, nstr)
+                      for b in range(B)], axis=-1)[None].repeat(L, axis=0),
+            dtype=torch.float32, device=dev)
+        modes = (0, 1) + ((N - 1, nstr - 1) if nstr == NSTR_BIG[-1] else ())
+        for m in modes:
+            angm = make_static_angles(nstr, nstr, m)
+            lam0 = lepoly(mu0, m, angm.lam_tables.shape[0] - 1).contiguous()
+            for thermal in ((True, False) if m == 0 else (False,)):
+                kw = dict(thermal=thermal, fbeam=fbeam, mur=mur, lam0=lam0)
+                a4 = (ssa, pm, dtau, btop, slope, angm)
+                stage1_exact(K.stage1_general(*a4, **kw),
+                             K.stage1_general_plain(*a4, **kw),
+                             f"K4 nstr {nstr} m {m} thermal {thermal}")
+        p = extra_problem(3, B // 3, 8, nstr, g=0.8, device=dev,
+                          kernel="torch", seed=nstr)
+        ds = p.disort
+        pr = ds._prepare(p.prop, p.bc, None)
+        md = ds._solve_mode(pr)
+        s5, a0 = md["sol"], ds._ang0
+        e2 = bvp_check(K.bvp_forward(s5.gp, s5.gm, s5.expd, md["dblk"],
+                                     pr["albedo"], a0), (md["P"], md["g"]),
+                       f"K2 nstr {nstr}")
+        bwd = (s5.gp, s5.gm, s5.expd, md["P"], md["g"], a0)
+        e5 = bvp_check(K.bvp_backward(*bwd), K.bvp_backward_plain(*bwd),
+                       f"K5 nstr {nstr}")
+        msgs.append(f"nstr {nstr}: K1, K1 beam bit-equal; K4 (m "
+                    + ", ".join(map(str, modes)) + f") bit-equal; K2 "
+                    f"{e2:.2e}, K5 {e5:.2e}")
+        del p, ds, pr, md, s5, bwd, pm
+    torch.cuda.empty_cache()
+    say("21", f"at L {L} x B {B} (stage 1) and {B} columns x 8 layers "
+              "(BVP): " + "; ".join(msgs) + f" ({STAGE1_TOL}, asserted "
+              f"bit-equal; {BVP_TOL}); {time.perf_counter() - t21:.1f} s "
+              f"into phase 21 [{card}]")
+
+    def path(label, p, want, stride, tag):
+        """A solve through ``kernel="auto"`` against the float64 plain path
+        on every ``stride``-th wave, its kernels against their plain
+        versions on its own inputs (every column, the plain versions once),
+        its peak device memory and step."""
+        torch.cuda.reset_peak_memory_stats()
+        ds64, args64, sel = wave_subset(p, stride, torch.float64, "torch")
+        res = solve_and_check(p.disort, ds64, (p.prop, p.bc, p.temf), args64,
+                              want, label, sel=sel if stride > 1 else None,
+                              steps=3)
+        del ds64, args64
+        torch.cuda.empty_cache()
+        pr = p.disort._prepare(p.prop, p.bc, p.temf)
+        md = p.disort._solve_mode(pr)
+        if "mur" in md:
+            near = resonance_margin(md) < RESONANCE_MARGIN
+            recs = beam_records(tag, res[0], pr, md, p.disort._ang0,
+                                near=near, once=True)
+        else:
+            recs = thermal_records(tag, res[0], pr, md, p.disort._ang0,
+                                   once=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        line = flux_line(label, res, card)
+        if stride > 1:
+            line = line.replace("plain:", f"plain on every {stride}th wave "
+                                f"({len(sel)} waves):", 1)
+        say("21", line + f"; peak device memory {peak:.1f} GiB; step "
+                  f"{res[5]:.3f} ms; per kernel: " + records_line(ptxas(recs))
+                  + f"; {time.perf_counter() - t21:.1f} s into phase 21")
+        for r in recs:
+            r["peak_gib"] = peak
+        del pr, md
+        torch.cuda.empty_cache()
+        return recs
+
+    # aerosol_16str_beam's configuration at nstr 64 and 48 (HG g 0.8, a
+    # beam, 128 columns, 40 layers), its 500 waves cut to the first ones
+    for nstr, nw in AEROSOL_BIG:
+        label = (f"aerosol_16str_beam's configuration {nw}x128x40 (the first "
+                 f"{nw} of its 500 waves) at nstr {nstr}, HG g 0.8")
+        p = extra_problem(500, 128, 40, nstr, g=0.8, device=dev,
+                          kernel="auto", first=nw)
+        kernels_json += path(label, p, dict(stage1_general=1, bvp_forward=1,
+                                            bvp_backward=1), 10,
+                             f"aerosol {nw}x128x40 nstr {nstr}")
+        del p
+    # the isotropic thermal and beam solves at nstr 64 (phase 19's shapes)
+    p = bench_problem(8, 2048, 20, 64, torch.float32, dev, "auto")
+    kernels_json += path("isotropic thermal 8x2048x20 nstr 64", p,
+                         dict(stage1_isotropic=1, bvp_forward=1,
+                              bvp_backward=1), 1,
+                         "bench 8x2048x20 nstr 64")
+    del p
+    p = extra_problem(500, 64, 20, 64, beam=True, device=dev, kernel="auto")
+    kernels_json += path("isotropic beam 500x64x20 nstr 64", p,
+                         dict(stage1_isotropic_beam=1, bvp_forward=1,
+                              bvp_backward=1), 10,
+                         "isotropic beam 500x64x20 nstr 64")
+    del p
+    torch.cuda.empty_cache()
+
+    # the radiances at nstr 64: K4 once per mode (64), K2 and K5 twice;
+    # float64 on every 10th wave with float32's resonance floor (on the
+    # columns with every layer over RESONANCE_MARGIN from a resonance the
+    # floor never acts, so there that run is the float64 answer)
+    shape = (8, 64, 20, 64)
+    torch.cuda.reset_peak_memory_stats()
+    p = radiance_problem(torch.float32, dev, "auto", shape=shape)
+    ds = p.disort
+    K.reset_launches()
+    out = ds.intensities(p.prop, p.bc)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    expect_launches(launches, stage1_general=shape[3], bvp_forward=2,
+                    bvp_backward=2)
+    ds64, args64, sel = wave_subset(p, 10, torch.float64, "torch")
+    with float32_resonance_floor():
+        ref_f, margin, _ = radiance_reference(ds64, args64[:2])
+    ncol = ds.options.ncol
+    near = (margin < RESONANCE_MARGIN).reshape(len(sel), ncol)
+    sub = {k: out[k].index_select(0, sel) for k in ("flux", "uu")}
+    res21 = radiance_errors(sub, ref_f, ref_f, near)
+    del ds64, args64, ref_f, sub
+    torch.cuda.empty_cache()
+    ms_step = cuda_ms(lambda: ds.intensities(p.prop, p.bc)["uu"], 2)
+    pr = ds._prepare(p.prop, p.bc, None)
+    modes = ds._modes_batched(pr)
+    fgp, fgm, fexpd, dblk, alb = modes["fold"]
+    L, B, N, nm = pr["L"], pr["B"], modes["N"], len(modes["ms"])
+    tag = "radiances 8x64x20 nstr 64"
+    ang0 = ds._ang0
+    k4_kernel, k4_plain, lam00 = radiance_k4(ds, pr, modes)
+    nmom = pr["pmom_s"].shape[1]
+    recs = [kernel_record(
+        "stage1_general", tag + f", modes 0..{nm}", launches["stage1_general"],
+        k4_kernel, k4_plain, (), {}, stage1_exact, STAGE1_TOL,
+        (nm + 1) * kernel_flops("stage1_general", N, L, B, nmom=nmom,
+                                sweeps=K.kernel_sweeps(N), thermal=False,
+                                beam=True),
+        reads=[pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["fbeam"],
+               modes["mur"]] * (nm + 1) + [lam00, modes["lam0"]], once=True)]
+    recs[0]["bit_equal"] = True
+    near_fold = (modes_margin(modes) < RESONANCE_MARGIN).reshape(nm * B)
+    recs.append(kernel_record(
+        "bvp_forward", tag + f", modes 1..{nm} folded",
+        launches["bvp_forward"], K.bvp_forward, K.bvp_forward_plain,
+        (fgp, fgm, fexpd, dblk, alb, ang0), {}, bvp_check, BVP_TOL,
+        kernel_flops("bvp_forward", N, L, nm * B), near=near_fold, once=True))
+    Pm, gm_ = K.bvp_forward(fgp, fgm, fexpd, dblk, alb, ang0)
+    recs.append(kernel_record(
+        "bvp_backward", tag + f", modes 1..{nm} folded",
+        launches["bvp_backward"], K.bvp_backward, K.bvp_backward_plain,
+        (fgp, fgm, fexpd, Pm, gm_, ang0), {}, bvp_check, BVP_TOL,
+        kernel_flops("bvp_backward", N, L, nm * B), near=near_fold,
+        once=True))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nrad = out["uu"].numel()
+    n_near = int(near.sum())
+    say("21", f"radiances {'x'.join(map(str, shape[:3]))} nstr 64: launches "
+              f"{launches}; uu {tuple(out['uu'].shape)} finite; vs the "
+              f"float64 plain path with float32's resonance floor on every "
+              f"10th wave ({len(sel)} waves x {ncol} columns): " + "; ".join(
+                  f"{k} {a:.2e} on the {near.numel() - n_near} columns away "
+                  f"from a resonance (<= 1e-4{' of the column' if k == 'uu' else ''}), "
+                  f"{f:.2e} on the {n_near} near ones (<= {NEAR_RESONANCE_TOL})"
+                  for k, (a, f, _, _) in res21.items())
+              + f"; peak device memory {peak:.1f} GiB; step {ms_step:.3f} ms "
+              f"= {nrad / ms_step * 1e3:.0f} radiances/s ({nrad}); per "
+              f"kernel (K4 over the {nm + 1} modes, bit-equal to its plain "
+              "version on every column): " + records_line(ptxas(recs))
+              + f" [{card}]")
+    for r in recs:
+        r["peak_gib"] = peak
+    kernels_json += recs
+    del p, ds, out, pr, modes, fgp, fgm, fexpd, dblk, alb, Pm, gm_, recs
+    torch.cuda.empty_cache()
+    say("21", f"phase 21 took {time.perf_counter() - t21:.1f} s [{card}]")
+    return kernels_json
+
+
 def main() -> None:
     import torch
 
@@ -1712,6 +2015,9 @@ def main() -> None:
              "over 32 columns: " + "; ".join(
                  f"bvp_backward_rows<{n}> {regs.get(f'bvp_backward_rows<{n}>')}"
                  for n in range(9, 17)))
+    say("1", "the bodies of N = 17..32, a warp per element or column, N "
+             "a run-time argument: " + "; ".join(
+                 f"{k} {v}" for k, v in regs.items() if k.endswith("<17..32>")))
     say("1", "K2 at N = 5..7: one thread per column at N = 5, 6 ("
              + "; ".join(f"bvp_forward<{n}> {regs.get(f'bvp_forward<{n}>')}"
                          for n in (5, 6))
@@ -2705,6 +3011,9 @@ def main() -> None:
 
     # ---- phase 20: K2 at N = 5..7 at full width ---------------------------
     kernels_json += phase20(dev, card, regs)
+
+    # ---- phase 21: 34 to 64 streams -----------------------------------------
+    kernels_json += phase21(dev, card, regs)
 
     print(card)
     print(json.dumps({"kernels": kernels_json}))

@@ -73,7 +73,7 @@ class DisortOptions:
 
     ``kernel``: ``"auto"`` launches the CUDA kernels for float32 CUDA
     tensors and runs the plain PyTorch versions otherwise
-    (``kernels.route``; float32 CUDA tensors at nstr > 32, which no kernel
+    (``kernels.route``; float32 CUDA tensors at nstr > 64, which no kernel
     runs, raise); ``"torch"`` runs the plain versions on any
     device and dtype; ``"cuda"`` launches the kernels and raises on
     anything they cannot run.
@@ -568,13 +568,18 @@ class Disort:
         mur = self._beam_cosine(pr)
         zero = torch.zeros_like(pr["ssa_s"])
         G = ang0.lam_tables.shape[0]
-        lam0s, outs = [], []
-        for m in ms:
-            lam0s.append(lepoly(pr["umu0"], m, G - 1).contiguous())
-            outs.append(k.stage1_general(
-                pr["ssa_s"], pr["pmom_s"], pr["dtau"], zero, zero,
-                self._angles(m), thermal=False, fbeam=pr["fbeam"], mur=mur,
-                lam0=lam0s[-1]))
+        lam0s = [lepoly(pr["umu0"], m, G - 1).contiguous() for m in ms]
+        angs = [self._angles(m) for m in ms]
+        if k.route == "torch":
+            # the plain version over all modes in one pass (the same bits)
+            outs = kernels.stage1_general_modes_plain(
+                pr["ssa_s"], pr["pmom_s"], pr["dtau"], angs,
+                fbeam=pr["fbeam"], mur=mur, lam0s=lam0s)
+        else:
+            outs = [k.stage1_general(pr["ssa_s"], pr["pmom_s"], pr["dtau"],
+                                     zero, zero, a, thermal=False,
+                                     fbeam=pr["fbeam"], mur=mur, lam0=l0)
+                    for a, l0 in zip(angs, lam0s)]
         # (..., L, nm, B): the modes next to the batch axis, so that the
         # folded (..., L, nm * B) is a view
         gp, gm, lam, expd, zp, zm = (torch.stack([o[i] for o in outs], dim=-2)

@@ -1,10 +1,11 @@
 """Batched symmetric eigendecomposition by cyclic Jacobi rotations (PyTorch
 port of ``pyharp_tpu/rt/disort/jacobi.py``).
 
-The matrix is scalarized: a list of lists of batch-shaped tensors, one per
-element, so each rotation touches only the 4n tensors it changes.  The
-rotation formulas and the cyclic (p, q) order are the JAX package's, so
-the same number of sweeps gives the same eigenvalue (mode) order.
+The matrix and its eigenvectors are one ``(n, 2n, *batch)`` tensor, held
+transposed; a rotation updates their columns p and q, and the matrix's
+rows p and q, for all rows in one tensor operation each.  The rotation
+formulas and the cyclic (p, q) order are the JAX package's, so the same
+number of sweeps gives the same eigenvalue (mode) order.
 """
 
 from __future__ import annotations
@@ -13,49 +14,47 @@ import torch
 from torch import Tensor
 
 
-def _rotate(A, V, p: int, q: int, n: int):
-    """One batched Jacobi rotation zeroing component A[p][q] (in place)."""
-    apq = A[p][q]
-    app = A[p][p]
-    aqq = A[q][q]
+def _rotate(T: Tensor, n: int, p: int, q: int) -> None:
+    """One batched Jacobi rotation zeroing A[p, q], in place on ``T`` =
+    ``[A, V]`` transposed, ``(n, 2n, *batch)``: ``T[c]`` holds column c of A
+    (entries 0..n-1) and of V (n..2n-1), so the columns p and q a rotation
+    changes are two contiguous rows of ``T`` for every row of A and V at
+    once.
+
+    A is symmetric and stays so.  Every element goes through the operations
+    of the rotation one row at a time in its order, so the bits are those
+    of a loop over the rows."""
+    apq = T[q, p]
+    app = T[p, p]
+    aqq = T[q, q]
 
     small = apq.abs() <= torch.finfo(apq.dtype).tiny * 1e3
-    one = torch.ones_like(apq)
-    denom = torch.where(small, one, 2.0 * apq)
+    denom = torch.where(small, 1.0, 2.0 * apq)
     tau = (aqq - app) / denom
     root = torch.sqrt(1.0 + tau * tau)
-    t = torch.sign(tau) / (tau.abs() + root)
-    t = torch.where(torch.sign(tau) == 0, 1.0 / (tau + root), t)
-    t = torch.where(small, torch.zeros_like(t), t)
+    sg = torch.sign(tau)
+    t = sg / (tau.abs() + root)
+    t = torch.where(sg == 0, 1.0 / (tau + root), t)
+    t = torch.where(small, 0.0, t)
     c = 1.0 / torch.sqrt(1.0 + t * t)
     s = t * c
 
-    # A <- J^T A J restricted to rows/cols p, q (A kept symmetric)
-    new_pp = c * c * app - 2.0 * s * c * apq + s * s * aqq
-    new_qq = s * s * app + 2.0 * s * c * apq + c * c * aqq
-    for r in range(n):
-        if r == p or r == q:
-            continue
-        arp = A[r][p]
-        arq = A[r][q]
-        nrp = c * arp - s * arq
-        nrq = s * arp + c * arq
-        A[r][p] = nrp
-        A[p][r] = nrp
-        A[r][q] = nrq
-        A[q][r] = nrq
-    A[p][p] = new_pp
-    A[q][q] = new_qq
-    zero = torch.zeros_like(apq)
-    A[p][q] = zero
-    A[q][p] = zero
-
-    for r in range(n):
-        vrp = V[r][p]
-        vrq = V[r][q]
-        V[r][p] = c * vrp - s * vrq
-        V[r][q] = s * vrp + c * vrq
-    return A, V
+    # A <- J^T A J restricted to rows/cols p, q: columns p and q of A and of
+    # V for every row, A's entries p and q of them then set to the new
+    # diagonal and zeros, and written over A's rows p and q too
+    cc, ss, sc2 = c * c, s * s, 2.0 * s * c
+    new_pp = cc * app - sc2 * apq + ss * aqq
+    new_qq = ss * app + sc2 * apq + cc * aqq
+    yp = c * T[p] - s * T[q]
+    yq = s * T[p] + c * T[q]
+    yp[p] = new_pp
+    yp[q] = 0.0
+    yq[p] = 0.0
+    yq[q] = new_qq
+    T[p] = yp
+    T[q] = yq
+    T[:n, p] = yp[:n]
+    T[:n, q] = yq[:n]
 
 
 def default_sweeps(n: int) -> int:
@@ -79,15 +78,14 @@ def jacobi_eigh(A: Tensor, sweeps: int | None = None):
     n = A.shape[0]
     if sweeps is None:
         sweeps = default_sweeps(n)
-    Ac = [[0.5 * (A[i, j] + A[j, i]) for j in range(n)] for i in range(n)]
-    one = torch.ones_like(A[0, 0])
-    zero = torch.zeros_like(A[0, 0])
-    Vc = [[one if i == j else zero for j in range(n)] for i in range(n)]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    eye = eye.reshape(n, n, *(1,) * (A.dim() - 2)).expand(A.shape)
+    # [A, V] transposed; both start symmetric, so as they are
+    T = torch.cat([0.5 * (A + A.transpose(0, 1)), eye], dim=1)
     if n > 1:
         for _ in range(sweeps):
             for p in range(n - 1):
                 for q in range(p + 1, n):
-                    Ac, Vc = _rotate(Ac, Vc, p, q, n)
-    w = torch.stack([Ac[i][i] for i in range(n)], dim=0)
-    V = torch.stack([torch.stack(row, dim=0) for row in Vc], dim=0)
-    return w, V
+                    _rotate(T, n, p, q)
+    w = torch.diagonal(T[:, :n], dim1=0, dim2=1).movedim(-1, 0).contiguous()
+    return w, T[:, n:].transpose(0, 1).contiguous()

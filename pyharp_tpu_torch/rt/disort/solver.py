@@ -93,20 +93,34 @@ def make_static_angles(nstr: int, nmom: int, m: int) -> StaticAngles:
 
 def _ucontract_g(coef: Tensor, tab: np.ndarray) -> Tensor:
     """sum_g coef[:, g, :] * tab[g, ...]: (L, G, B) x (G, *dims) ->
-    (*dims, L, B), skipping the table's zero entries."""
+    (*dims, L, B), skipping the table's zero entries.
+
+    Every entry is its own sum in g order, its first nonzero term standing
+    alone (zero with none); all entries go together, one tensor operation
+    a term."""
     G, dims = tab.shape[0], tab.shape[1:]
-    flat = []
-    for idx in np.ndindex(*dims):
-        acc = None
-        for gidx in range(G):
-            t = float(tab[(gidx,) + idx])
-            if t == 0.0:
-                continue
-            term = coef[:, gidx, :] * t
-            acc = term if acc is None else acc + term
-        flat.append(torch.zeros_like(coef[:, 0, :]) if acc is None else acc)
-    out = torch.stack(flat, dim=0)
-    return out.reshape(tuple(dims) + tuple(out.shape[1:]))
+    L, _, B = coef.shape
+    acc = coef.new_zeros(tuple(dims) + (L, B))
+    started = np.zeros(dims, bool)
+
+    def mask(m):
+        return torch.as_tensor(m, device=coef.device)[..., None, None]
+
+    for gidx in range(G):
+        nz = tab[gidx] != 0.0
+        if not nz.any():
+            continue
+        t = torch.as_tensor(tab[gidx], dtype=coef.dtype, device=coef.device)
+        term = coef[:, gidx, :] * t[..., None, None]
+        add, first = nz & started, nz & ~started
+        if add.all():
+            acc += term
+        else:
+            if add.any():
+                acc = torch.where(mask(add), acc + term, acc)
+            acc = torch.where(mask(first), term, acc)
+        started |= nz
+    return acc
 
 
 def _mm(a: Tensor, b: Tensor) -> Tensor:

@@ -8,7 +8,8 @@ JAX package's scripts, on the CPU.
 * ``stages.split_forward``: the stages chained give ``Disort.forward``'s
   flux bit for bit.
 * ``roofline_run``: ``kernel_bytes`` equals the bytes of each kernel's
-  tensors (``tensor_bytes``) on small problems; at the bench shape the
+  tensors (``tensor_bytes``) on small problems, up to N = 32, and
+  ``kernel_flops`` grows with N through N = 32; at the bench shape the
   bounds of K1, K2 and K3 are 0.438, 0.657 and 0.674 ms; the BVP's
   min-bytes floor is JAX ``roofline_run.kernel_counts``'s.
 * ``rmse_run._solver_fluxes`` against JAX ``rmse_run._solver_fluxes`` in
@@ -196,7 +197,7 @@ def _kernel_calls(N, L, B):
     return calls
 
 
-@pytest.mark.parametrize("N", [1, 2, 4])
+@pytest.mark.parametrize("N", [1, 2, 4, 17, 32])
 def test_kernel_bytes_is_the_tensor_count(N):
     L, B = 3, 5
     calls = _kernel_calls(N, L, B)
@@ -204,6 +205,20 @@ def test_kernel_bytes_is_the_tensor_count(N):
     for name, kw, reads, outs in calls:
         assert R.kernel_bytes(name, N, L, B, **kw) == R.tensor_bytes(
             reads, outs), (name, kw)
+
+
+@pytest.mark.parametrize("name", ["stage1_isotropic", "stage1_isotropic_beam",
+                                  "stage1_general", "bvp_forward",
+                                  "bvp_backward"])
+def test_kernel_flops_grow_with_n(name):
+    """Per element the operations of the solves' kernels grow with N
+    through N = 32 (nstr 64, the bodies of ``csrc/*_big.cu``), and K4's 8
+    sweeps of N (N - 1) / 2 rotations lead its count there."""
+    kw = dict(nmom=64, sweeps=8) if name == "stage1_general" else {}
+    per = [R.kernel_flops(name, N, 1, 1, **kw) for N in range(16, 33)]
+    assert all(b > a > 0 for a, b in zip(per, per[1:]))
+    if name == "stage1_general":
+        assert per[-1] > 8 * (32 * 31 // 2) * 6 * 32
 
 
 def test_bench_shape_bounds():

@@ -397,15 +397,14 @@ def test_team_rotation_is_jacobi_rotate(G, pq):
     diag = np.stack([M[j, j] for j in range(NMAX)])
     team_rotate(A, Yt, diag, p, q, G)
     team_row_refresh(A, p, G)
-    At = [[torch.from_numpy(M[i, j].copy()) for j in range(NMAX)]
-          for i in range(NMAX)]
-    Vt = [[torch.from_numpy(V[i, j].copy()) for j in range(NMAX)]
-          for i in range(NMAX)]
-    jacobi._rotate(At, Vt, p, q, NMAX)
+    # [A, V] transposed (A symmetric), as jacobi_eigh holds it
+    T = torch.from_numpy(np.concatenate([M, V.transpose(1, 0, 2)], axis=1))
+    jacobi._rotate(T, NMAX, p, q)
+    At, Vt = T[:, :NMAX], T[:, NMAX:].transpose(0, 1)
     for i in range(NMAX):
-        np.testing.assert_array_equal(diag[i], At[i][i].numpy())
+        np.testing.assert_array_equal(diag[i], At[i, i].numpy())
         for j in range(NMAX):
             if i != j:
                 np.testing.assert_array_equal(A[i % G, i // G, j],
-                                              At[i][j].numpy())
-            np.testing.assert_array_equal(Yt[i % G, i // G, j], Vt[i][j].numpy())
+                                              At[i, j].numpy())
+            np.testing.assert_array_equal(Yt[i % G, i // G, j], Vt[i, j].numpy())

@@ -8,7 +8,8 @@ that is NaN from nstr 22 on (the top root sits under float32's spacing
 from its pole, ``tests/wide_secular_report.py`` prints it).  The port's K1
 at N > 8 is held here:
 
-* against its own float64 plain version, at every N = 9..16, on
+* against its own float64 plain version, at every N = 9..16 and at N =
+  17, 24, 32, on
   ``test_torch_kernels._stage1_inputs(6, 64, seed 0)`` (ssa = 0 and
   0.999999 entries included): finite, gp and gm within 2e-4 of their max,
   lam within 2e-6 relative everywhere but the ssa = 0.999999 element,
@@ -59,7 +60,12 @@ def _plain_beam(ins, fbeam, mur, nstr, dtype):
                                    make_static_angles(nstr, nstr, 0))
 
 
-@pytest.mark.parametrize("nstr", NSTR_WIDE)
+# and the bodies of N = 17..32 (csrc/stage1_isotropic_big.cu), whose plain
+# version is the same
+NSTR_BIG = (34, 48, 64)
+
+
+@pytest.mark.parametrize("nstr", NSTR_WIDE + NSTR_BIG)
 def test_wide_k1_float32_is_near_float64(nstr):
     ins = _stage1_inputs(6, 64, seed=0)
     fbeam, mur = _beam_inputs(64, 6)
