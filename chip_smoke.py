@@ -23,8 +23,9 @@ or more:
    nstr up to 16; K1, K4 and K2 at N = 9..16 as one body each,
    ``<kernel>_wide<9..16>``: K4 a team of 4 lanes per element, K2 a warp
    per column, each on a line of its own; K5 at each N = 9..16 as
-   ``bvp_backward_rows``; K1, K4, K2 and K5 at N = 17..32 as one body
-   each, ``<kernel>_big<17..32>``, a warp per element or column), K2 as
+   ``bvp_backward_rows``; K1, K4 and K5 at N = 17..32 as one body
+   each, ``<kernel>_big<17..32>``, K2 there as its two tiles,
+   ``bvp_forward_big<17..24>`` and ``<25..32>``), K2 as
    its bodies (one thread per column for
    N <= 6, ``bvp_forward_half`` for N = 7, ``bvp_forward_team`` for
    N = 8) and K6 as
@@ -198,7 +199,8 @@ or more:
     plain versions on the path's inputs, every column, timed;
 21. 34 to 64 streams: ``kernels.route`` sends float32 CUDA tensors at
     every nstr 2..64 to the kernels, and nstr 66 raises before any launch;
-    at nstr 34, 40, 48, 50, 64 (N = 17, 20, 24, 25, 32), K1 and its beam
+    K4's square root without a range check against ``sqrtf`` on every
+    float32 in [1, 2^60] (``kernels.root_check``); at nstr 34, 40, 48, 50, 64 (N = 17, 20, 24, 25, 32), K1 and its beam
     variant and K4 (thermal x beam at m = 0, m = 1, at nstr 64 also m =
     31 and 63) bit-equal to their plain versions on L 7 x B 1017 elements
     (asserted), K2 and K5 on 1017 columns x 8 layers to phase 3's bound;
@@ -359,8 +361,9 @@ def bvp_check(got, ref, what: str) -> float:
 def ptxas_summary(log: str) -> dict[str, str]:
     """'kernel<N>' -> 'R regs, F B stack, S B spill st, L B spill ld' from
     ptxas -v; the bodies of K1, K4 and K2 at N = 9..16 as
-    'kernel_wide<9..16>', those of K1, K4, K2 and K5 at N = 17..32 as
-    'kernel_big<17..32>'."""
+    'kernel_wide<9..16>', those of K1, K4 and K5 at N = 17..32 as
+    'kernel_big<17..32>', K2's there as 'bvp_forward_big<17..24>' and
+    'bvp_forward_big<25..32>' (its two tiles)."""
     out, cur, regs, spills = {}, None, {}, {}
     for line in log.splitlines():
         m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?$",
@@ -375,8 +378,8 @@ def ptxas_summary(log: str) -> dict[str, str]:
             w = re.search(r"(stage1_isotropic|stage1_general|bvp_forward)"
                           r"_wide_kernel(ILb([01])E)?", m.group(1))
             big = re.search(r"(stage1_isotropic|stage1_general|bvp_forward|"
-                            r"bvp_backward)_big_kernel(ILb([01])E)?",
-                            m.group(1))
+                            r"bvp_backward)_big_kernel(ILb([01])E|"
+                            r"ILi(\d+)ELi\d+ELi\d+E)?", m.group(1))
             cur = None
             if k:
                 # the second template argument: K1's beam flag, K6's mode,
@@ -392,7 +395,10 @@ def ptxas_summary(log: str) -> dict[str, str]:
                 cur = f"{w.group(1)}_wide{beam}<9..16>"
             elif big:
                 beam = "_beam" if big.group(3) == "1" else ""
-                cur = f"{big.group(1)}_big{beam}<17..32>"
+                # K2's tile of 6 rows a thread serves N <= 24, of 8 N >= 25
+                span = {"6": "17..24", "8": "25..32"}.get(big.group(4),
+                                                          "17..32")
+                cur = f"{big.group(1)}_big{beam}<{span}>"
             continue
         if cur is None:
             continue
@@ -1749,7 +1755,10 @@ def phase21(dev, card: str, regs: dict) -> list:
                        + ("_beam" if n.endswith("_beam") else "")
                        + "<17..32>")
            for n in ("stage1_isotropic", "stage1_isotropic_beam",
-                     "stage1_general", "bvp_forward", "bvp_backward")}
+                     "stage1_general", "bvp_backward")}
+    big["bvp_forward"] = "; ".join(
+        f"N = {span}: {regs.get(f'bvp_forward_big<{span}>')}"
+        for span in ("17..24", "25..32"))
 
     def ptxas(recs):
         for r in recs:
@@ -1771,6 +1780,12 @@ def phase21(dev, card: str, regs: dict) -> list:
     del p
     say("21", "route: float32 CUDA tensors at nstr 2..64 -> 'cuda'; nstr 66 "
               "raises before any launch")
+    bad = K.root_check()
+    assert bad == 0, (f"K4's square root at N = 17..32 differs from sqrtf on "
+                      f"{bad} float32 values in [1, 2^60]")
+    say("21", "K4's square root without a range check equals sqrtf on every "
+              "float32 in [1, 2^60], the range of 1 + tau^2 its rotations "
+              f"keep to [{card}]")
 
     # each body against its plain version: K1 (thermal, beam) and K4
     # (thermal x beam at m = 0, m = 1 with a beam, at nstr 64 also m = 31
@@ -2015,9 +2030,12 @@ def main() -> None:
              "over 32 columns: " + "; ".join(
                  f"bvp_backward_rows<{n}> {regs.get(f'bvp_backward_rows<{n}>')}"
                  for n in range(9, 17)))
-    say("1", "the bodies of N = 17..32, a warp per element or column, N "
-             "a run-time argument: " + "; ".join(
-                 f"{k} {v}" for k, v in regs.items() if k.endswith("<17..32>")))
+    say("1", "the bodies of N = 17..32, N a run-time argument (K1, K4 a "
+             "warp per element, K2 a block of 4 warps per column, its tile "
+             "of 6 x 5 at N <= 24 and of 8 x 7 above, K5 N warps over 32 "
+             "columns): " + "; ".join(
+                 f"{k} {v}" for k, v in regs.items()
+                 if k.endswith(("<17..32>", "<17..24>", "<25..32>"))))
     say("1", "K2 at N = 5..7: one thread per column at N = 5, 6 ("
              + "; ".join(f"bvp_forward<{n}> {regs.get(f'bvp_forward<{n}>')}"
                          for n in (5, 6))

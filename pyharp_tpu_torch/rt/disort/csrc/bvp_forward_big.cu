@@ -18,43 +18,94 @@
 // against ~(2N)^2 (3N + 1) ~ 400,000 flops of elimination at N = 32, and
 // the layer loop is serial.
 //
-// Design: a warp per column, the system in shared memory, one body for
-// every N = 17..32 with N a run-time argument.  The wide body's layout (a
-// block column a lane, the lower block at lane position 16) needs 2N <= 32
-// positions and holds Q in 45 KB for 4 columns; here the 2N rows are more
-// than a warp's lanes, so lane t owns rows t and t + 32.
-//  - The layer's gp, gm (N x N at an odd row stride) and E are staged in
-//    shared memory; lane t < N builds block columns t and N + t (both
-//    from gp's and gm's column t) and the lanes build the unit columns and
-//    the right-hand side by rows.
-//  - big.cuh's warp_lu_solve: the swap bits from a prefix max over the
-//    rows of both halves and two ballots (record_bits), the swaps by lanes
-//    over columns, the elimination by rows, back substitution by
-//    right-hand side.
-//  - The carry by rows of Q (lane t row t), P and g from shared memory.
-// Shared memory per column: the 2N x (3N + 1) system, gp, gm, Q (N x N
-// each) and E, rg: 37.8 KB at N = 32, sized at launch for the run-time N;
-// kCols columns a block.  Stores of P and g go out a lane an entry.
-// chip_smoke.py phase 1 prints registers, stack and spills.
+// Design: a block of kWarps = 4 warps per column, one body for every
+// N = 17..32 with N a run-time argument (shared memory sized at launch:
+// 39.5 KB at N = 32, so five columns an SM).  The earlier body (a warp per
+// column, the system in shared memory) ran each row update as a serial
+// chain of shared-memory round trips with six warps an SM; a first
+// redesign with the rows on lanes and the columns over the warps kept the
+// system in shared memory and was bound by its traffic (two accesses an
+// entry a step).  Here the elimination holds the system in registers.  (A
+// variant with the columns cyclic over the warps and rows on lanes, one
+// barrier a step and the pivot row by shuffles, fully unrolled, was 2.4x
+// slower: ~90 KB of code a body.)
+//  - The layer's gp, gm (N x N at an odd row stride), E and d are staged in
+//    shared memory, every load of a thread issued before its first store.
+//    A block takes one column, so each load fetches its own 32-byte
+//    sector; the blocks of neighbouring columns run the same layer at
+//    about the same time, and their loads of one sector meet in L2.
+//  - The system is built in shared memory: the upper block rows Q Dn a
+//    thread summing kRows rows of one column at once (each sum over j in
+//    order), neighbouring threads on neighbouring columns; the lower rows,
+//    the unit columns and the right-hand side entry by entry.
+//  - The elimination holds the system in registers: thread (ty, tx) a
+//    tile of kTr x kTc entries (rows ty + 8i, columns tx + 16k).  Rows
+//    never move.  A step col: the threads holding column col publish it
+//    (two buffers, so that a step's writes never meet the last step's
+//    reads); every warp reads it through its own copy of the
+//    logical-to-physical row map (lane t: logical rows t and t + 32),
+//    finds the plain bubble's records (record_bits_of) and updates the map
+//    in one step (apply_records: the swaps amount to one permutation,
+//    position col taking the last record's row, each record the row of the
+//    record before it, the first record col's row); the threads holding
+//    the pivot row publish it right of col; every thread takes
+//    a_rj - f a_pj, f = a_r,col (1 / a_p,col), on the live rows and the
+//    columns right of col of its tile, each entry's updates in column
+//    order as the plain version.  Two barriers a step; the column loop
+//    runs in kTc unrolled blocks of 16, so every register index is a
+//    constant.  The rows then go back to shared memory in logical order.
+//  - Back substitution for all N + 1 right-hand sides at once, right-hand
+//    side q on thread q (warps 0 and 1 at N = 32), each sum in ascending
+//    column order, its loads four terms ahead.
+//  - The stores of P and g entry by entry; the carry Q = R_l P_l,
+//    rg = R_l g_l as the upper rows, kRows rows of one column a thread.
+// chip_smoke.py phase 1 prints registers, stack and spills;
+// tools/wide_ab.py's part big_cycles the cycles by phase.
 
 #include "big.cuh"
 
 namespace {
 
-constexpr int kCols = 2;                 // columns (warps) a block
+constexpr int kWarps = 4;                // warps a column (block)
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 4;                 // rows of a thread's block sums
+// the elimination's tile: thread (ty, tx) = (tid / 16, tid % 16) holds rows
+// ty + 8i (i < kTr) and columns tx + 16k (k < kTc) of the 2N x (3N + 1)
+// system: kTr = 8, kTc = 7 (64 x 112 positions over the block) at
+// N = 25..32 with five blocks an SM; kTr = 6, kTc = 5 (48 x 80) at
+// N <= 24, fewer registers, seven blocks an SM
+constexpr int kTcMax = 7;
+constexpr int kSmallN = 24;
 
-// Shared-memory layout of one column for n.
-// The system (2n rows of 3n + 1 at stride ld) first, then gp, gm and Q
-// (n rows at stride lds), E and rg.
+// Shared-memory layout of a column for n: the system (2n rows of 3n + 1 at
+// stride ld), gp, gm and Q (n rows at stride lds), E, d, rg, the Lambertian
+// sums of the last layer (2n), the pivot column (two buffers of 64), the
+// pivot row (16 kTcMax) and the final row map (64 ints).
 struct BigGeom {
-  int m, ld, lds, gp, gm, q, e, rg, floats;
+  int m, w, ld, lds, gp, gm, q, e, d, rg, refl, col, piv, perm, floats;
   __host__ __device__ explicit BigGeom(int n)
-      : m(2 * n), ld(odd_stride(3 * n + 1)), lds(odd_stride(n)), gp(m * ld),
-        gm(gp + n * lds), q(gm + n * lds), e(q + n * lds), rg(e + n),
-        floats(rg + n) {}
+      : m(2 * n), w(3 * n + 1), ld(odd_stride(3 * n + 1)), lds(odd_stride(n)),
+        gp(m * ld), gm(gp + n * lds), q(gm + n * lds), e(q + n * lds),
+        d(e + n), rg(d + m), refl(rg + n), col(refl + m), piv(col + 128),
+        perm(piv + 16 * kTcMax), floats(perm + 64) {}
 };
 
-__global__ void __launch_bounds__(32 * kCols)
+// Input k of a layer (gp, gm, E, d flattened in that order).
+__device__ __forceinline__ float layer_input(const float* __restrict__ gp,
+                                             const float* __restrict__ gm,
+                                             const float* __restrict__ ev,
+                                             const float* __restrict__ dv,
+                                             int k, int n, int64_t LB,
+                                             int64_t o) {
+  const int nn = n * n;
+  if (k < nn) return gp[k * LB + o];
+  if (k < 2 * nn) return gm[(k - nn) * LB + o];
+  if (k < 2 * nn + n) return ev[(k - 2 * nn) * LB + o];
+  return dv[(k - 2 * nn - n) * LB + o];
+}
+
+template <int kTr, int kTc, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 bvp_forward_big_kernel(const float* __restrict__ gp_in,
                        const float* __restrict__ gm_in,
                        const float* __restrict__ e_in,
@@ -64,111 +115,315 @@ bvp_forward_big_kernel(const float* __restrict__ gp_in,
                        int n, int L, int64_t B, FloatN<kBigMaxN> wmu) {
   extern __shared__ __align__(16) float smem[];
   const BigGeom G(n);
-  const int t = static_cast<int>(threadIdx.x) & 31;
-  const int wi = static_cast<int>(threadIdx.x) >> 5;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kCols + wi;
-  if (b >= B) return;                    // a whole warp: no shuffle partner
+  const int tid = static_cast<int>(threadIdx.x);
+  const int t = tid & 31;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const int64_t b = blockIdx.x;
   const int64_t LB = static_cast<int64_t>(L) * B;
-  float* A = smem + wi * G.floats;
-  float* sgp = A + G.gp;
-  float* sgm = A + G.gm;
-  float* sq = A + G.q;
-  float* se = A + G.e;
-  float* srg = A + G.rg;
-  const int m = G.m, ld = G.ld, lds = G.lds;
+  float* A = smem;
+  float* sgp = smem + G.gp;
+  float* sgm = smem + G.gm;
+  float* sq = smem + G.q;
+  float* se = smem + G.e;
+  float* sd = smem + G.d;
+  float* srg = smem + G.rg;
+  float* srefl = smem + G.refl;
+  float* scol = smem + G.col;           // the pivot column, two buffers
+  float* spiv = smem + G.piv;           // the pivot row
+  int* slog = reinterpret_cast<int*>(smem + G.perm);
+  const int m = G.m, w = G.w, ld = G.ld, lds = G.lds;
+  const int nn = n * n;
+  const int nin = 2 * nn + 3 * n;
+  const int nb = (n + kRows - 1) / kRows;    // batches of kRows rows
   const float alb2 = 2.0f * alb_in[b];
+  BIG_PROF_START();
 
   // the carry above the first layer: zeros
-  for (int k = t; k < n * lds; k += 32) sq[k] = 0.0f;
-  for (int k = t; k < n; k += 32) srg[k] = 0.0f;
+  for (int k = tid; k < n * lds; k += kThreads) sq[k] = 0.0f;
+  for (int k = tid; k < n; k += kThreads) srg[k] = 0.0f;
 
   for (int l = 0; l < L; ++l) {
     const int64_t o = static_cast<int64_t>(l) * B + b;
-    for (int k = t; k < n * n; k += 32) {
-      const int i = k / n;
-      const int j = k - i * n;
-      sgp[i * lds + j] = gp_in[k * LB + o];
-      sgm[i * lds + j] = gm_in[k * LB + o];
+    // stage this layer's inputs, every load before the first store
+    {
+      float v[(2 * kBigMaxN * kBigMaxN + 3 * kBigMaxN + kThreads - 1)
+              / kThreads];
+      constexpr int kPre = sizeof(v) / sizeof(float);
+#pragma unroll
+      for (int i = 0; i < kPre; ++i) {
+        const int k = tid + i * kThreads;
+        v[i] = k < nin ? layer_input(gp_in, gm_in, e_in, d_in, k, n, LB, o)
+                       : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < kPre; ++i) {
+        const int k = tid + i * kThreads;
+        if (k < nn) {
+          sgp[(k / n) * lds + k % n] = v[i];
+        } else if (k < 2 * nn) {
+          sgm[((k - nn) / n) * lds + (k - nn) % n] = v[i];
+        } else if (k < 2 * nn + n) {
+          se[k - 2 * nn] = v[i];
+        } else if (k < nin) {
+          sd[k - 2 * nn - n] = v[i];
+        }
+      }
     }
-    for (int k = t; k < n; k += 32) se[k] = e_in[k * LB + o];
-    __syncwarp();
+    __syncthreads();
+    BIG_PROF_MARK(0);
 
-    // block columns t and n + t
-    if (t < n) {
-      const float ej = se[t];
-      float refl_lo = 0.0f;
-      float refl_hi = 0.0f;
-      if (l == L - 1) {
-        // sum_r wmu_r Rn[r][j], Rn = [gm E, gp]
+    const bool last = l == L - 1;
+    if (last) {
+      // sum_r wmu_r Rn[r][c], Rn = [gm E, gp], for the block columns c
+      for (int c = tid; c < m; c += kThreads) {
+        const int cc = c < n ? c : c - n;
+        const float ec = se[cc];
+        float acc = 0.0f;
         for (int r = 0; r < n; ++r) {
-          const float rlo = sgm[r * lds + t] * ej;
-          const float rhi = sgp[r * lds + t];
-          refl_lo = (r == 0) ? wmu.v[0] * rlo : refl_lo + wmu.v[r] * rlo;
-          refl_hi = (r == 0) ? wmu.v[0] * rhi : refl_hi + wmu.v[r] * rhi;
+          const float rv = c < n ? sgm[r * lds + cc] * ec : sgp[r * lds + cc];
+          acc = (r == 0) ? wmu.v[0] * rv : acc + wmu.v[r] * rv;
+        }
+        srefl[c] = acc;
+      }
+      __syncthreads();
+    }
+    // the upper block rows -Ttop + Q Dn (Ttop = [gm, gp E], Dn = [gp,
+    // gm E]), kRows rows of one column c a thread, each sum over j in order
+    for (int k = tid; k < nb * m; k += kThreads) {
+      const int i0 = (k / m) * kRows;
+      const int c = k - (k / m) * m;
+      const bool hi = c >= n;
+      const int cc = hi ? c - n : c;
+      const float ec = se[cc];
+      const float* dcol = hi ? sgm + cc : sgp + cc;
+      float acc[kRows] = {};
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        float dj = dcol[j * lds];
+        if (hi) dj = dj * ec;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float qv = sq[min(i0 + r, n - 1) * lds + j];
+          acc[r] = j == 0 ? qv * dj : acc[r] + qv * dj;
         }
       }
-      for (int i = 0; i < n; ++i) {
-        // upper: -Ttop + Q Dn, Ttop = [gm, gp E], Dn = [gp, gm E]
-        float acc_lo = sq[i * lds] * sgp[t];
-        float acc_hi = sq[i * lds] * (sgm[t] * ej);
-        for (int k = 1; k < n; ++k) {
-          const float qik = sq[i * lds + k];
-          acc_lo = acc_lo + qik * sgp[k * lds + t];
-          acc_hi = acc_hi + qik * (sgm[k * lds + t] * ej);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = i0 + r;
+        if (i < n) {
+          const float tv = hi ? sgp[i * lds + cc] * ec : sgm[i * lds + cc];
+          A[i * ld + c] = -tv + acc[r];
         }
-        A[i * ld + t] = -sgm[i * lds + t] + acc_lo;
-        A[i * ld + n + t] = -(sgp[i * lds + t] * ej) + acc_hi;
-        // lower: Blow = [gp E, gm]
-        float blo = sgp[i * lds + t] * ej;
-        float bhi = sgm[i * lds + t];
-        if (l == L - 1) {
-          blo = blo - alb2 * refl_lo;
-          bhi = bhi - alb2 * refl_hi;
-        }
-        A[(n + i) * ld + t] = blo;
-        A[(n + i) * ld + n + t] = bhi;
       }
     }
-    // the unit columns and the right-hand side, by rows
-    for (int r = t; r < m; r += 32) {
-      for (int q = 0; q < n; ++q) A[r * ld + m + q] = (r == n + q) ? 1.0f : 0.0f;
-      const float d = d_in[r * LB + o];
-      A[r * ld + m + n] = r < n ? d - srg[r] : d;
+    // the lower block rows Blow = [gp E, gm], less the fold on the last
+    // layer, the unit columns and the right-hand side
+    for (int k = tid; k < n * m; k += kThreads) {
+      const int ii = k / m;
+      const int c = k - ii * m;
+      const bool hi = c >= n;
+      const int cc = hi ? c - n : c;
+      float v = hi ? sgm[ii * lds + cc] : sgp[ii * lds + cc] * se[cc];
+      if (last) v = v - alb2 * srefl[c];
+      A[(n + ii) * ld + c] = v;
     }
-    __syncwarp();
+    for (int k = tid; k < m * (n + 1); k += kThreads) {
+      const int r = k / (n + 1);
+      const int q = k - r * (n + 1);
+      A[r * ld + m + q] = q < n ? ((r == n + q) ? 1.0f : 0.0f)
+                                : (r < n ? sd[r] - srg[r] : sd[r]);
+    }
+    __syncthreads();
+    BIG_PROF_MARK(1);
 
-    warp_lu_solve(A, ld, m, n + 1, t);
+    // the elimination in registers, rows never moved
+    float a[kTr][kTc];
+#pragma unroll
+    for (int i = 0; i < kTr; ++i) {
+#pragma unroll
+      for (int k = 0; k < kTc; ++k) {
+        const int r = ty + 8 * i;
+        const int c = tx + 16 * k;
+        a[i][k] = (r < m && c < w) ? A[r * ld + c] : 0.0f;
+      }
+    }
+    // pivot rows so far and the rows past m, as bits of the physical row
+    unsigned long long dead = m < 64 ? ~0ull << m : 0ull;
+    int p0 = t;          // each warp's map: physical rows of logical t, t + 32
+    int p1 = t + 32;
+#pragma unroll
+    for (int kb = 0; kb < kTc; ++kb) {
+      if (16 * kb + 1 >= m) break;
+      for (int cl = 0; cl < 16; ++cl) {
+        const int col = 16 * kb + cl;
+        if (col + 1 >= m) break;
+        float* cv = scol + 64 * (col & 1);
+        // the owners of column col publish it
+        if (tx == cl) {
+#pragma unroll
+          for (int i = 0; i < kTr; ++i) {
+            if (ty + 8 * i < m) cv[ty + 8 * i] = a[i][kb];
+          }
+        }
+        __syncthreads();
+        // every warp: the records through its map, the map in one step
+        float a0 = cv[p0];
+        float a1 = t + 32 < m ? cv[p1] : 0.0f;
+        const unsigned long long bits = record_bits_of(a0, a1, m, col, t);
+        if (bits != 0ull) apply_records(bits, col, t, p0, p1, a0, a1);
+        const int pv = __shfl_sync(kBigFull, col < 32 ? p0 : p1, col & 31);
+        const float apv =
+            __shfl_sync(kBigFull, col < 32 ? a0 : a1, col & 31);
+        const float inv = 1.0f / apv;
+        dead |= 1ull << pv;
+        BIG_PROF_MARK(2);
+        // the owners of the pivot row publish it right of col
+        if (ty == (pv & 7)) {
+          const int ip = pv >> 3;
+#pragma unroll
+          for (int k = kb; k < kTc; ++k) {
+            float v = a[0][k];
+#pragma unroll
+            for (int i = 1; i < kTr; ++i) v = ip == i ? a[i][k] : v;
+            spiv[tx + 16 * k] = v;
+          }
+        }
+        __syncthreads();
+        // every live row less f times the pivot row, right of col
+        float pj[kTc];
+#pragma unroll
+        for (int k = kb; k < kTc; ++k) pj[k] = spiv[tx + 16 * k];
+#pragma unroll
+        for (int i = 0; i < kTr; ++i) {
+          const int r = ty + 8 * i;
+          if (((dead >> r) & 1ull) == 0ull) {
+            const float f = cv[r] * inv;
+#pragma unroll
+            for (int k = kb; k < kTc; ++k) {
+              const int c = tx + 16 * k;
+              if (c < w && (k > kb || tx > cl)) {
+                a[i][k] = a[i][k] - f * pj[k];
+              }
+            }
+          }
+        }
+        BIG_PROF_MARK(3);
+      }
+    }
+    // the rows in logical order back into shared memory
+    if (tid < 32) {
+      slog[p0] = t;
+      if (t + 32 < m) slog[p1] = t + 32;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kTr; ++i) {
+      const int r = ty + 8 * i;
+      if (r < m) {
+        const int lr = slog[r];
+#pragma unroll
+        for (int k = 0; k < kTc; ++k) {
+          const int c = tx + 16 * k;
+          if (c < w) A[lr * ld + c] = a[i][k];
+        }
+      }
+    }
+    __syncthreads();
+
+    // back substitution, right-hand side q on thread q, each sum in
+    // ascending column order, the solution over the right-hand side
+    if (tid <= n) {
+      const int q = m + tid;
+      for (int i = m - 1; i >= 0; --i) {
+        const float* row = A + i * ld;
+        float acc = row[q];
+        int c = i + 1;
+        for (; c + 4 <= m; c += 4) {
+          float u[4];
+          float x[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            u[k] = row[c + k];
+            x[k] = A[(c + k) * ld + q];
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc = acc - u[k] * x[k];
+        }
+        for (; c < m; ++c) acc = acc - row[c] * A[c * ld + q];
+        A[i * ld + q] = acc / row[i];
+      }
+    }
+    __syncthreads();
+    BIG_PROF_MARK(4);
 
     // P_l[r][q] = x_q[r], g_l = x_n
-    for (int k = t; k < m * n; k += 32) {
+    for (int k = tid; k < m * n; k += kThreads) {
       const int r = k / n;
       const int q = k - r * n;
       p_out[k * LB + o] = A[r * ld + m + q];
     }
-    for (int r = t; r < m; r += 32) g_out[r * LB + o] = A[r * ld + m + n];
+    for (int r = tid; r < m; r += kThreads) {
+      g_out[r * LB + o] = A[r * ld + m + n];
+    }
+    BIG_PROF_MARK(5);
     if (l + 1 == L) break;
-    // the carry: Q[t][j] = sum_k Rn[t][k] P[k][j], rg[t] = sum_k Rn[t][k]
-    // g[k], Rn = [gm E, gp]
-    if (t < n) {
-      for (int j = 0; j <= n; ++j) {
-        float acc = (sgm[t * lds] * se[0]) * A[m + j];
-        for (int k = 1; k < m; ++k) {
-          const float rn = k < n ? sgm[t * lds + k] * se[k]
-                                 : sgp[t * lds + k - n];
-          acc = acc + rn * A[k * ld + m + j];
+    // the carry: Q[i][j] = sum_k Rn[i][k] P[k][j], rg[i] = sum_k Rn[i][k]
+    // g[k], Rn = [gm E, gp]; kRows rows of one column j a thread
+    for (int k = tid; k < nb * (n + 1); k += kThreads) {
+      const int i0 = (k / (n + 1)) * kRows;
+      const int j = k - (k / (n + 1)) * (n + 1);
+      float acc[kRows] = {};
+#pragma unroll 4
+      for (int kk = 0; kk < m; ++kk) {
+        const float xv = A[kk * ld + m + j];
+        const bool lo = kk < n;
+        const float ek = lo ? se[kk] : 1.0f;
+        const float* rcol = lo ? sgm + kk : sgp + (kk - n);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          float rn = rcol[min(i0 + r, n - 1) * lds];
+          if (lo) rn = rn * ek;
+          acc[r] = kk == 0 ? rn * xv : acc[r] + rn * xv;
         }
-        if (j < n) {
-          sq[t * lds + j] = acc;
-        } else {
-          srg[t] = acc;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = i0 + r;
+        if (i < n) {
+          if (j < n) {
+            sq[i * lds + j] = acc[r];
+          } else {
+            srg[i] = acc[r];
+          }
         }
       }
     }
-    __syncwarp();
+    __syncthreads();
+    BIG_PROF_MARK(6);
   }
+  BIG_PROF_FLUSH();
+}
+
+int smem_bytes(int n) {
+  return BigGeom(n).floats * static_cast<int>(sizeof(float));
+}
+
+// The instantiation for n, its shared memory attribute set (it belongs to
+// the current device: set on every launch).
+using Body = void (*)(const float*, const float*, const float*, const float*,
+                      const float*, float*, float*, int, int, int64_t,
+                      FloatN<kBigMaxN>);
+cudaError_t body_for(int n, Body* fn) {
+  *fn = n <= kSmallN ? bvp_forward_big_kernel<6, 5, 7>
+                     : bvp_forward_big_kernel<8, 7, 5>;
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes(n));
 }
 
 }  // namespace
+
+BIG_PROF_READER(bvp_forward_big)
 
 // Shapes as pyharp_bvp_forward (bvp_forward.cu), for n = 17..32.
 PYHARP_API int pyharp_bvp_forward_big(int n, const float* gp, const float* gm,
@@ -180,15 +435,22 @@ PYHARP_API int pyharp_bvp_forward_big(int n, const float* gp, const float* gm,
   if (B == 0 || L == 0) return 0;
   FloatN<kBigMaxN> w{};
   for (int i = 0; i < n; ++i) w.v[i] = wmu[i];
-  const int bytes = kCols * BigGeom(n).floats * static_cast<int>(sizeof(float));
-  // the attribute belongs to the current device: set it on every launch
-  const cudaError_t err = cudaFuncSetAttribute(
-      bvp_forward_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  Body fn = nullptr;
+  const cudaError_t err = body_for(n, &fn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto blocks = static_cast<unsigned>((B + kCols - 1) / kCols);
-  bvp_forward_big_kernel<<<blocks, 32 * kCols, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      gp, gm, expd, dblk, albedo, p, g, n, L, B, w);
+  fn<<<static_cast<unsigned>(B), kThreads, smem_bytes(n),
+       static_cast<cudaStream_t>(stream)>>>(gp, gm, expd, dblk, albedo, p, g,
+                                            n, L, B, w);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Columns resident on an SM at n, by the occupancy calculator.
+PYHARP_API int pyharp_bvp_forward_big_occupancy(int n) {
+  Body fn = nullptr;
+  if (body_for(n, &fn) != cudaSuccess) return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, fn, kThreads, smem_bytes(n)) != cudaSuccess)
+    return -1;
+  return blocks;
 }

@@ -1,19 +1,29 @@
 """Float32 numpy models of K2's and K5's bodies at N = 17..32
-(``csrc/bvp_forward_big.cu``, ``csrc/bvp_backward_big.cu``, the warp LU of
-``csrc/big.cuh``), lane by lane, held against the plain versions.
+(``csrc/bvp_forward_big.cu``, ``csrc/bvp_backward_big.cu``) and of the
+warp LU of ``csrc/big.cuh`` that K1 beam and K4 run there, held against the
+plain versions.
 
-K2 gives a warp to a column.  Its 2N x (3N + 1) system sits in shared
-memory, lane t owning rows t and t + 32, so rows pass position 32 and a
-pivot search spans both halves: ``record_bits`` takes an inclusive prefix
-max of |a| over each half (five ``shfl_up`` steps with ``fmaxf``; a NaN
-pivot stands as +inf, a NaN below it as -inf), carries the lower half's
-total into the upper one and ballots the rows that beat the prefix before
-them.  Those must be the plain bubble's swaps
-(``test_record_bits_span_both_halves``).  The swaps go row by row in bit
-order over the lanes' columns, each row below the pivot is eliminated on
-its lane, and back substitution runs a right-hand side a lane; with the
-block built by lanes (t < N builds block columns t and N + t) and the
-carry by rows of Q, the model gives ``bvp_forward_plain``'s float32 bits.
+K2 gives a block of four warps to a column.  Its 2N x (3N + 1) system is
+eliminated in the threads' registers, a tile of 8 rows x 7 columns a
+thread (6 x 5 at N <= 24), and no row ever moves: each warp keeps a
+logical-to-physical row map, lane t holding logical rows t and t + 32, so
+a pivot search spans two halves.  ``record_bits`` takes an inclusive prefix max of
+|a| over each half (five ``shfl_up`` steps with ``fmaxf``; a NaN pivot
+stands as +inf, a NaN below it as -inf), carries the lower half's total
+into the upper one and ballots the rows that beat the prefix before them:
+the plain bubble's swaps (``test_record_bits_span_both_halves``).  Those
+swaps amount to one permutation, which ``record_source`` applies to the
+map in one step (``test_one_step_permutation_is_the_bubble``).  Each
+thread updates the live rows and the columns right of the pivot of its
+tile, each entry a_rj - f a_pj in column order (``block_lu``, tile by
+tile); the rows go back in logical order and back substitution takes every
+right-hand side at once, each sum in ascending column order; with the block built entry by entry and the
+carry Q = R P, rg = R g, the model gives ``bvp_forward_plain``'s float32
+bits.
+
+The warp LU (K1 beam and K4) swaps rows record by record over the lanes'
+columns, eliminates each row below the pivot on its lane and runs back
+substitution a right-hand side a lane (``test_warp_lu_is_lu_solve``).
 
 K5 gives a block of N warps (N <= 32, so at most 1,024 threads) 32
 columns, warp w forming rows w and N + w of x = g + P dx, then the sums up_w
@@ -35,7 +45,8 @@ from hypothesis import strategies as st
 from pyharp_tpu_torch.rt.disort import kernels as K
 from pyharp_tpu_torch.rt.disort.linsolve import lu_solve
 
-from .test_torch_team_pivot import FINITE, TIED, _layer_inputs, swap_flags
+from .test_torch_team_pivot import (FINITE, TIED, _layer_inputs,
+                                    bubble_order, swap_flags)
 
 F32 = np.float32
 NSTR_BIG = (34, 50, 64)
@@ -112,55 +123,103 @@ def warp_lu_solve(A, nr: int, nq: int):
                 A[row, nr + q] = acc / A[row, row]
 
 
+def record_source(bits, col: int, x: int) -> int:
+    """big.cuh's ``record_source``: the logical position whose row the
+    bubble's swaps over records ``bits`` (a bool array over 64 positions)
+    in column ``col`` move to position ``x``."""
+    rec = [r for r in range(64) if bits[r]]
+    if x == col:
+        return rec[-1] if rec else col
+    if not bits[x]:
+        return x
+    below = [r for r in rec if r < x]
+    return below[-1] if below else col
+
+
+def block_lu(A, m: int, nq: int):
+    """bvp_forward_big.cu's elimination and back substitution in float32 on
+    one column's system ``A`` ``(m, m + nq)``, in place, tile by tile:
+    thread (ty, tx) of the block's 8 x 16 holds rows ty + 8i and columns
+    tx + 16k.  Rows never move; each step publishes the pivot column, finds
+    the records through the row map, publishes the pivot row, and each
+    thread updates the live rows and the columns right of the pivot of its
+    tile.  The rows then go back in logical order (``A`` ends in that
+    order, the solution in its right-hand-side columns) and every
+    right-hand side is solved at once."""
+    w = m + nq
+    perm = list(range(m))                  # logical -> physical
+    dead = np.zeros(m, bool)               # the pivot rows so far
+    pad = np.zeros(64 - m, F32)
+    tiles = [(np.arange(ty, m, 8), np.arange(tx, w, 16))
+             for ty in range(8) for tx in range(16)]
+    with np.errstate(all="ignore"):
+        for col in range(m - 1):
+            cv = A[:, col].copy()            # the owners publish column col
+            bits = record_bits(np.concatenate([cv[perm], pad]), col, m)
+            perm = [perm[record_source(bits, col, x)] for x in range(m)]
+            pv = perm[col]
+            inv = F32(1.0) / cv[pv]
+            dead[pv] = True
+            piv = A[pv].copy()               # the owners publish row pv
+            for rows, cols in tiles:
+                rows = rows[~dead[rows]]
+                cols = cols[cols > col]
+                if rows.size and cols.size:
+                    f = cv[rows] * inv
+                    A[np.ix_(rows, cols)] = (A[np.ix_(rows, cols)]
+                                             - f[:, None] * piv[cols][None])
+        A[:] = A[perm]                       # back in logical order
+        for i in range(m - 1, -1, -1):       # every right-hand side at once
+            acc = A[i, m:w].copy()
+            for c in range(i + 1, m):
+                acc = acc - A[i, c] * A[c, m:w]
+            A[i, m:w] = acc / A[i, i]
+
+
 def big_forward(gp, gm, E, dblk, albedo, wmu):
-    """bvp_forward_big.cu in float32, all columns at once on the last axis:
+    """bvp_forward_big.cu in float32, column by column (a block each):
     ``(P, g)`` as ``bvp_forward_plain``'s."""
     N, _, L, B = gp.shape
     M = 2 * N
-    q = np.zeros((N, N, B), F32)
-    rg = np.zeros((N, B), F32)
     P = np.empty((M, N, L, B), F32)
     g = np.empty((M, L, B), F32)
-    alb2 = F32(2.0) * albedo
-    for l in range(L):
-        sgp, sgm, se = gp[:, :, l], gm[:, :, l], E[:, l]
-        A = np.zeros((M, 3 * N + 1, B), F32)
-        for t in range(N):                       # block columns t and N + t
-            ej = se[t]
-            if l == L - 1:
-                for r in range(N):
-                    rlo, rhi = sgm[r, t] * ej, sgp[r, t]
-                    refl_lo = wmu[0] * rlo if r == 0 else refl_lo + wmu[r] * rlo
-                    refl_hi = wmu[0] * rhi if r == 0 else refl_hi + wmu[r] * rhi
-            for i in range(N):
-                acc_lo = q[i, 0] * sgp[0, t]
-                acc_hi = q[i, 0] * (sgm[0, t] * ej)
-                for k in range(1, N):
-                    acc_lo = acc_lo + q[i, k] * sgp[k, t]
-                    acc_hi = acc_hi + q[i, k] * (sgm[k, t] * ej)
-                A[i, t] = -sgm[i, t] + acc_lo
-                A[i, N + t] = -(sgp[i, t] * ej) + acc_hi
-                blo, bhi = sgp[i, t] * ej, sgm[i, t]
-                if l == L - 1:
-                    blo, bhi = blo - alb2 * refl_lo, bhi - alb2 * refl_hi
-                A[N + i, t], A[N + i, N + t] = blo, bhi
-        for r in range(M):                       # unit columns, rhs by rows
-            if r >= N:
-                A[r, M + r - N] = 1.0
-            A[r, M + N] = dblk[r, l] - rg[r] if r < N else dblk[r, l]
-        warp_lu_solve(A, M, N + 1)
-        P[:, :, l] = A[:, M:M + N]
-        g[:, l] = A[:, M + N]
-        for t in range(N):                       # the carry, row t on lane t
-            for j in range(N + 1):
-                acc = (sgm[t, 0] * se[0]) * A[0, M + j]
+    with np.errstate(all="ignore"):
+        for b in range(B):
+            q = np.zeros((N, N), F32)
+            rg = np.zeros(N, F32)
+            alb2 = F32(2.0) * albedo[b]
+            for l in range(L):
+                sgp, sgm, se = gp[:, :, l, b], gm[:, :, l, b], E[:, l, b]
+                last = l == L - 1
+                # the block columns c of [gp, gm E] and [gm, gp E]
+                dn = np.concatenate([sgp, sgm * se[None]], axis=1)
+                tt = np.concatenate([sgm, sgp * se[None]], axis=1)
+                blow = np.concatenate([sgp * se[None], sgm], axis=1)
+                if last:
+                    rn = np.concatenate([sgm * se[None], sgp], axis=1)
+                    refl = wmu[0] * rn[0]
+                    for r in range(1, N):
+                        refl = refl + wmu[r] * rn[r]
+                    blow = blow - alb2 * refl
+                A = np.zeros((M, 3 * N + 1), F32)
+                acc = q[:, 0, None] * dn[0][None]
+                for j in range(1, N):
+                    acc = acc + q[:, j, None] * dn[j][None]
+                A[:N, :M] = -tt + acc
+                A[N:, :M] = blow
+                A[N:, M:M + N] = np.eye(N, dtype=F32)
+                A[:, M + N] = np.concatenate([dblk[:N, l, b] - rg,
+                                              dblk[N:, l, b]])
+                block_lu(A, M, N + 1)
+                x = A[:, M:]                     # x_r, r in unknown order
+                P[:, :, l, b] = x[:, :N]
+                g[:, l, b] = x[:, N]
+                # the carry Q = Rn x[:, :N], rg = Rn x[:, N], Rn = [gm E, gp]
+                rn = np.concatenate([sgm * se[None], sgp], axis=1)
+                acc = rn[:, 0, None] * x[0][None]
                 for k in range(1, M):
-                    rn = sgm[t, k] * se[k] if k < N else sgp[t, k - N]
-                    acc = acc + rn * A[k, M + j]
-                if j < N:
-                    q[t, j] = acc
-                else:
-                    rg[t] = acc
+                    acc = acc + rn[:, k, None] * x[k][None]
+                q, rg = acc[:, :N], acc[:, N]
     return P, g
 
 
@@ -220,6 +279,42 @@ def test_record_bits_span_both_halves(column, col):
     assert not got[nr:].any() and not got[:col + 1].any()
 
 
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.one_of(TIED, FINITE), min_size=2, max_size=64),
+       st.integers(0, 63))
+def test_one_step_permutation_is_the_bubble(column, col):
+    """The records of column ``col`` applied as one permutation of the row
+    map (``record_source``: col takes the last record's row, each record
+    the row of the record before it, the first record col's row) give the
+    row order of ``lu_solve``'s bubble, on drawn columns with ties of up to
+    64 rows, records at and past position 32."""
+    col = col % len(column)
+    nr = len(column)
+    x = np.zeros(64, F32)
+    x[:nr] = np.array(column, F32)
+    bits = record_bits(x, col, nr)
+    got = [record_source(bits, col, r) for r in range(nr)]
+    assert got == bubble_order(list(x[:nr]), col), (x[:nr], col)
+
+
+@pytest.mark.parametrize("n", [34, 40, 48, 64])
+def test_block_lu_is_lu_solve(n):
+    """K2's elimination through the row map, with every right-hand side at
+    once, on drawn float32 systems with tied entries and 17 right-hand
+    sides gives the plain ``lu_solve``'s bits."""
+    rng = np.random.default_rng(40 + n)
+    nq = 17
+    A = rng.choice(np.array([0.0, 1.0, -1.0, 0.5, 2.0, -3.0], F32),
+                   (n, n, 4)) + np.eye(n, dtype=F32)[..., None] * F32(0.25)
+    A[:, :, :2] += rng.standard_normal((n, n, 2)).astype(F32)
+    rhs = rng.standard_normal((n, nq, 4)).astype(F32)
+    want = lu_solve(torch.from_numpy(A), torch.from_numpy(rhs)).numpy()
+    for b in range(A.shape[-1]):
+        sys_ = np.concatenate([A[..., b], rhs[..., b]], axis=1)
+        block_lu(sys_, n, nq)
+        np.testing.assert_array_equal(sys_[:, n:], want[..., b])
+
+
 @pytest.mark.parametrize("n", [17, 33, 40, 64])
 def test_warp_lu_is_lu_solve(n):
     """The warp LU on drawn float32 systems with tied entries (a pivot
@@ -238,8 +333,9 @@ def test_warp_lu_is_lu_solve(n):
 
 @pytest.mark.parametrize("nstr", (34, 48, 64))
 def test_big_forward_is_the_plain_forward(nstr):
-    """Lane by lane, K2's layout gives ``bvp_forward_plain``'s float32
-    bits, the Lambertian fold on the last layer included."""
+    """Block by block, through the row map, K2's body gives
+    ``bvp_forward_plain``'s float32 bits, the Lambertian fold on the last
+    layer included."""
     ins, ang = _layer_inputs(nstr, L=3, B=3, seed=700 + nstr)
     wmu = (ang.w * ang.mu).astype(F32)
     got = big_forward(*(x.numpy() for x in ins), wmu)

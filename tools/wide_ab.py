@@ -1,6 +1,7 @@
 """Time K1, K4 and K2 at N = 16 (nstr 32), K5 at N = 9..16, K2 at N = 5..7,
-the solve steps they run in, and the plain LU against another tree's, in
-turns, on the card.
+K4 and K2 at N = 17..32, the solve steps they run in, and the plain LU
+against another tree's, in turns, on the card; K4's and K2's cycles by
+phase at N = 17..32.
 
     git archive <commit> pyharp_tpu_torch/rt/disort | tar -x -C _checkout/parent
     python3 tools/wide_ab.py --parent _checkout/parent
@@ -44,6 +45,27 @@ times the tool against itself.  Each part times its calls over
   ``linsolve.lu_solve`` and with this tree's, in the order parent, this
   tree, this tree, parent, once each.
 
+- ``big``, in the order parent, this tree, this tree, parent: K4 and K2
+  at N = 17..32 on the full-width inputs of ``chip_smoke.py`` phase 21,
+  aerosol_16str_beam's configuration at nstr 64 (its first 100 waves x 128
+  x 40) and nstr 48 (200 waves), the isotropic thermal (8 x 2048 x 20) and
+  beam (500 x 64 x 20) solves at nstr 64 (K2 only) and the radiances at
+  nstr 64 (8 x 64 x 20: K4 over the 64 modes, K2 on the folded modes),
+  after checking the parent's results against this tree's (K4 bit-equal,
+  K2 within the BVP bound).  Only the bodies of N = 17..32
+  (``BIG_SOURCES``) are built for it, so the two libraries build in about
+  a minute.  The elements (K4) and columns (K2) an SM holds, by the
+  occupancy calculator, go beside the times; first, K4's square root
+  without a range check against ``sqrtf`` on every float32 in [1, 2^60]
+  (``kernels.root_check``).
+- ``big_cycles``: K4 and K2 at N = 17..32 of this tree and of the parent
+  (where its sources carry the marks) built with
+  ``PYHARP_BIG_PROFILE``, once each on the aerosol inputs at nstr 64 and
+  48 (K4 also with a thermal source, so its two LUs run) and K2 on the
+  isotropic thermal solve at nstr 64: the ``clock64()`` cycles of each
+  phase (``BIG_PROF_MARK`` in the sources), summed over the warps (K4) or
+  blocks (K2) and divided by their count, and each phase's share.
+
 The parent's ``_umv`` and ``lu_solve`` are read from its ``solver.py``
 and ``linsolve.py`` and run in this tree's modules.  One JSON line goes
 to stdout and to ``wide_ab.json`` in ``--out-dir`` (the build directory
@@ -64,7 +86,18 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 DISORT = Path("pyharp_tpu_torch/rt/disort")
-PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu")
+PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu", "big", "big_cycles")
+# the parts that time the whole libraries (the others build the bodies of
+# N = 17..32 alone)
+FULL_PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu")
+BIG_SOURCES = ("stage1_isotropic_big.cu", "stage1_general_big.cu",
+               "bvp_forward_big.cu", "bvp_backward_big.cu")
+# the phases of BIG_PROF_MARK in the two bodies
+K4_PHASES = ("moments, contractions and Cholesky", "K = Lc^T Vhat Lc",
+             "sweeps", "D and the eigenvectors", "beam particular",
+             "thermal LUs")
+K2_PHASES = ("staging", "block build", "swaps", "elimination",
+             "back substitution", "stores", "carry")
 
 
 def parent_function(path: Path, name: str, module):
@@ -76,6 +109,164 @@ def parent_function(path: Path, name: str, module):
     ns = dict(vars(module))
     exec(compile(ast.Module([node], []), str(path), "exec"), ns)
     return ns[name]
+
+
+def occupancy(lib, name: str, N: int) -> int:
+    """Elements (K4) or columns (K2) an SM holds at N by the occupancy
+    calculator, from the library's ``pyharp_<name>_occupancy``."""
+    import ctypes
+
+    fn = getattr(lib.lib, f"pyharp_{name}_occupancy")
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return int(fn(N))
+
+
+def big_inputs(what: str, dev):
+    """The problem of one path of ``big``: ``(problem, has_k4,
+    radiances)``."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import (bench_problem, extra_problem,
+                                                 radiance_problem)
+
+    if what == "aerosol_100x128x40_nstr64":
+        return extra_problem(500, 128, 40, 64, g=0.8, device=dev,
+                             kernel="cuda", first=100), True, False
+    if what == "aerosol_200x128x40_nstr48":
+        return extra_problem(500, 128, 40, 48, g=0.8, device=dev,
+                             kernel="cuda", first=200), True, False
+    if what == "iso_thermal_8x2048x20_nstr64":
+        return bench_problem(8, 2048, 20, 64, torch.float32, dev,
+                             "cuda"), False, False
+    if what == "iso_beam_500x64x20_nstr64":
+        return extra_problem(500, 64, 20, 64, beam=True, device=dev,
+                             kernel="cuda"), False, False
+    assert what == "radiances_8x64x20_nstr64", what
+    return radiance_problem(torch.float32, dev, "cuda",
+                            shape=(8, 64, 20, 64)), True, True
+
+
+BIG_PATHS = ("aerosol_100x128x40_nstr64", "aerosol_200x128x40_nstr48",
+             "iso_thermal_8x2048x20_nstr64", "iso_beam_500x64x20_nstr64",
+             "radiances_8x64x20_nstr64")
+
+
+def big_calls(p, k4: bool, radiances: bool):
+    """K4's and K2's calls on a path's inputs, as the path launches them:
+    ``(k4_fn or None, k2_fn, N)``."""
+    from chip_smoke import radiance_k4
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    ds = p.disort
+    if radiances:
+        pr = ds._prepare(p.prop, p.bc, None)
+        modes = ds._modes_batched(pr)
+        fold = modes["fold"]
+        k4_fn = radiance_k4(ds, pr, modes)[0]
+        return k4_fn, lambda: K.bvp_forward(*fold, ds._ang0), modes["N"]
+    pr = ds._prepare(*p.args)
+    md = ds._solve_mode(pr)
+    sol, ang = md["sol"], ds._ang0
+    k4_fn = None
+    if k4:
+        k4_fn = lambda thermal=False: K.stage1_general(
+            pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["b_top_lay"],
+            pr["slope"], ang, thermal=thermal, fbeam=pr["fbeam"],
+            mur=md["mur"], lam0=md["lam0"])
+    a2 = (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ang)
+    return k4_fn, lambda: K.bvp_forward(*a2), sol.gp.shape[0]
+
+
+def big_part(args, res, libs, timed, lib_setups, lib_turns, dev) -> None:
+    """The part ``big`` (module docstring)."""
+    import torch
+
+    from chip_smoke import bvp_check
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    def use(name):
+        K._library = libs[name]
+
+    use("new")
+    res["big_root_check_bad"] = K.root_check()
+    print(f"K4's root against sqrtf on [1, 2^60]: "
+          f"{res['big_root_check_bad']} differ", flush=True)
+    for what in BIG_PATHS:
+        use("new")
+        p, k4, radiances = big_inputs(what, dev)
+        k4_fn, k2_fn, N = big_calls(p, k4, radiances)
+        if k4_fn is not None:
+            ref = k4_fn()
+            use("parent")
+            got = k4_fn()
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), (
+                f"K4 of the parent differs from this tree's on {what}")
+            del got, ref
+            timed(f"big_k4_{what}", k4_fn, lib_setups, lib_turns, args.reps)
+        use("new")
+        ref = k2_fn()
+        use("parent")
+        res[f"big_k2_{what}_max_rel_err"] = bvp_check(
+            k2_fn(), ref, f"K2 of the parent on {what}")
+        del ref
+        timed(f"big_k2_{what}", k2_fn, lib_setups, lib_turns, args.reps)
+        for who, lb in libs.items():
+            res[f"big_{what}_{who}_per_sm"] = {
+                "k4_elements": occupancy(lb, "stage1_general_big", N),
+                "k2_columns": occupancy(lb, "bvp_forward_big", N)}
+        print(f"{what}: per SM {res[f'big_{what}_new_per_sm']} (new), "
+              f"{res[f'big_{what}_parent_per_sm']} (parent)", flush=True)
+        del p, k4_fn, k2_fn
+        torch.cuda.empty_cache()
+    use("new")
+
+
+def big_cycles(res, who: str, lib, dev, card: str) -> None:
+    """The part ``big_cycles`` (module docstring) on one tree's library
+    (``who``: ``new`` or ``parent``)."""
+    import ctypes
+
+    import torch
+
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    K._library = lib
+    counters = (ctypes.c_ulonglong * 9)()
+
+    def cycles(name, phases, fn):
+        reader = getattr(lib.lib, f"pyharp_{name}_profile")
+        reader.argtypes, reader.restype = [ctypes.c_void_p], ctypes.c_int
+        torch.cuda.synchronize()
+        assert reader(ctypes.addressof(counters)) == 0
+        fn()
+        torch.cuda.synchronize()
+        assert reader(ctypes.addressof(counters)) == 0
+        units = counters[8]
+        per = [counters[i] / units for i in range(len(phases))]
+        tot = sum(per)
+        return {"units": units, "cycles_per_unit": tot,
+                "phases": {ph: [c, c / tot] for ph, c in zip(phases, per)}}
+
+    for what, k2_only in (("aerosol_100x128x40_nstr64", False),
+                          ("aerosol_200x128x40_nstr48", False),
+                          ("iso_thermal_8x2048x20_nstr64", True)):
+        p, k4, radiances = big_inputs(what, dev)
+        k4_fn, k2_fn, N = big_calls(p, k4, radiances)
+        if not k2_only:
+            for thermal in (False, True):
+                key = (f"{who}_cycles_k4_{what}"
+                       + ("_thermal" if thermal else ""))
+                res[key] = cycles("stage1_general_big", K4_PHASES,
+                                  lambda: k4_fn(thermal))
+                res[key]["elements_per_sm"] = occupancy(
+                    lib, "stage1_general_big", N)
+                print(f"{key}: {res[key]} [{card}]", flush=True)
+        key = f"{who}_cycles_k2_{what}"
+        res[key] = cycles("bvp_forward_big", K2_PHASES, k2_fn)
+        res[key]["columns_per_sm"] = occupancy(lib, "bvp_forward_big", N)
+        print(f"{key}: {res[key]} [{card}]", flush=True)
+        del p, k4_fn, k2_fn
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -107,21 +298,32 @@ def main() -> None:
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        fut = pool.submit(K.build, args.parent / DISORT / "csrc",
-                          REPO / "pyharp_tpu_torch" / "_build" / "ab"
-                          / "parent")
-        lib = K.build()
-        plib = fut.result()
+    ab = REPO / "pyharp_tpu_torch" / "_build" / "ab"
+    pcsrc = args.parent / DISORT / "csrc"
+    jobs = {}
+    if set(parts) & set(FULL_PARTS):
+        jobs["new"] = (K.CSRC, K.BUILD_DIR, None, ())
+        jobs["parent"] = (pcsrc, ab / "parent", None, ())
+    if "big" in parts:
+        jobs["new_big"] = (K.CSRC, ab / "new_big", BIG_SOURCES, ())
+        jobs["parent_big"] = (pcsrc, ab / "parent_big", BIG_SOURCES, ())
+    if "big_cycles" in parts:
+        jobs["profile"] = (K.CSRC, ab / "profile", BIG_SOURCES,
+                           ("PYHARP_BIG_PROFILE",))
+        jobs["parent_profile"] = (pcsrc, ab / "parent_profile", BIG_SOURCES,
+                                  ("PYHARP_BIG_PROFILE",))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {k: pool.submit(K.build, *v) for k, v in jobs.items()}
+        built = {k: f.result() for k, f in futs.items()}
     regs = {f"{who}:{k}": v
-            for who, lb in (("new", lib), ("parent", plib))
+            for who, lb in built.items()
             for k, v in ptxas_summary(lb.ptxas_log).items()
-            if "wide" in k or k.startswith("bvp_backward")
+            if "wide" in k or "big" in k or k.startswith("bvp_backward")
             or k in ("bvp_forward<5>", "bvp_forward<6>", "bvp_forward<7>",
                      "bvp_forward_half<7>")}
-    print(f"built in {time.perf_counter() - t0:.1f} s; ptxas: {regs}",
-          flush=True)
-    libs = {"new": lib, "parent": plib}
+    print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s; "
+          f"ptxas: {regs}", flush=True)
+    libs = {"new": built.get("new"), "parent": built.get("parent")}
     new_umv, new_lu = D._umv, K.lu_solve
 
     def use(name):
@@ -382,7 +584,16 @@ def main() -> None:
         del p, pr, md, sol
         torch.cuda.empty_cache()
 
-    K._library = lib
+    if "big" in parts:
+        libs = {"new": built["new_big"], "parent": built["parent_big"]}
+        big_part(args, res, libs, timed, lib_setups, lib_turns, dev)
+    if "big_cycles" in parts:
+        for who in ("parent", "new"):
+            lb = built["profile" if who == "new" else "parent_profile"]
+            if hasattr(lb.lib, "pyharp_bvp_forward_big_profile"):
+                big_cycles(res, who, lb, dev, card)
+
+    K._library = libs["new"]
     line = json.dumps(res)
     args.out_dir.mkdir(parents=True, exist_ok=True)
     (args.out_dir / "wide_ab.json").write_text(line + "\n")
