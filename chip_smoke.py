@@ -1751,6 +1751,8 @@ def phase21(dev, card: str, regs: dict) -> list:
 
     t21 = time.perf_counter()
     kernels_json = []
+    clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"]).splitlines()[0])
     big = {n: regs.get(n.replace("_beam", "") + "_big"
                        + ("_beam" if n.endswith("_beam") else "")
                        + "<17..32>")
@@ -1867,6 +1869,10 @@ def phase21(dev, card: str, regs: dict) -> list:
         else:
             recs = thermal_records(tag, res[0], pr, md, p.disort._ang0,
                                    once=True)
+        floor = ""
+        if recs[0]["name"].startswith("stage1_isotropic"):
+            floor = "; " + k1_floor_text(md["sol"].gp.shape[0], pr["L"],
+                                         pr["B"], clock_mhz)
         peak = torch.cuda.max_memory_allocated() / 2**30
         line = flux_line(label, res, card)
         if stride > 1:
@@ -1874,7 +1880,8 @@ def phase21(dev, card: str, regs: dict) -> list:
                                 f"({len(sel)} waves):", 1)
         say("21", line + f"; peak device memory {peak:.1f} GiB; step "
                   f"{res[5]:.3f} ms; per kernel: " + records_line(ptxas(recs))
-                  + f"; {time.perf_counter() - t21:.1f} s into phase 21")
+                  + floor + f"; {time.perf_counter() - t21:.1f} s into "
+                  "phase 21")
         for r in recs:
             r["peak_gib"] = peak
         del pr, md

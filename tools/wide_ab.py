@@ -1,7 +1,7 @@
 """Time K1, K4 and K2 at N = 16 (nstr 32), K5 at N = 9..16, K2 at N = 5..7,
-K4 and K2 at N = 17..32, the solve steps they run in, and the plain LU
-against another tree's, in turns, on the card; K4's and K2's cycles by
-phase at N = 17..32.
+K1, K4 and K2 at N = 17..32, the solve steps they run in, and the plain LU
+against another tree's, in turns, on the card; K1's, K4's and K2's cycles
+by phase at N = 17..32.
 
     git archive <commit> pyharp_tpu_torch/rt/disort | tar -x -C _checkout/parent
     python3 tools/wide_ab.py --parent _checkout/parent
@@ -45,25 +45,26 @@ times the tool against itself.  Each part times its calls over
   ``linsolve.lu_solve`` and with this tree's, in the order parent, this
   tree, this tree, parent, once each.
 
-- ``big``, in the order parent, this tree, this tree, parent: K4 and K2
-  at N = 17..32 on the full-width inputs of ``chip_smoke.py`` phase 21,
+- ``big``, in the order parent, this tree, this tree, parent: K1, K4 and
+  K2 at N = 17..32 on the full-width inputs of ``chip_smoke.py`` phase 21,
   aerosol_16str_beam's configuration at nstr 64 (its first 100 waves x 128
-  x 40) and nstr 48 (200 waves), the isotropic thermal (8 x 2048 x 20) and
-  beam (500 x 64 x 20) solves at nstr 64 (K2 only) and the radiances at
-  nstr 64 (8 x 64 x 20: K4 over the 64 modes, K2 on the folded modes),
-  after checking the parent's results against this tree's (K4 bit-equal,
-  K2 within the BVP bound).  Only the bodies of N = 17..32
-  (``BIG_SOURCES``) are built for it, so the two libraries build in about
-  a minute.  The elements (K4) and columns (K2) an SM holds, by the
-  occupancy calculator, go beside the times; first, K4's square root
+  x 40) and nstr 48 (200 waves), the isotropic thermal (8 x 2048 x 20: K1
+  and K2) and beam (500 x 64 x 20: K1 beam and K2) solves at nstr 64 and
+  the radiances at nstr 64 (8 x 64 x 20: K4 over the 64 modes, K2 on the
+  folded modes), after checking the parent's results against this tree's
+  (K1 and K4 bit-equal, K2 within the BVP bound).  Only the bodies of N =
+  17..32 (``BIG_SOURCES``) are built for it, so the two libraries build in
+  about a minute.  The elements (K1, K4) and columns (K2) an SM holds, by
+  the occupancy calculator, go beside the times; first, K4's square root
   without a range check against ``sqrtf`` on every float32 in [1, 2^60]
   (``kernels.root_check``).
-- ``big_cycles``: K4 and K2 at N = 17..32 of this tree and of the parent
-  (where its sources carry the marks) built with
+- ``big_cycles``: K1, K4 and K2 at N = 17..32 of this tree and of the
+  parent (where its sources carry the marks) built with
   ``PYHARP_BIG_PROFILE``, once each on the aerosol inputs at nstr 64 and
-  48 (K4 also with a thermal source, so its two LUs run) and K2 on the
-  isotropic thermal solve at nstr 64: the ``clock64()`` cycles of each
-  phase (``BIG_PROF_MARK`` in the sources), summed over the warps (K4) or
+  48 (K4 also with a thermal source, so its two LUs run), K2 on the
+  isotropic thermal solve at nstr 64, K1 on the isotropic thermal and
+  beam solves at nstr 64: the ``clock64()`` cycles of each phase
+  (``BIG_PROF_MARK`` in the sources), summed over the warps (K1, K4) or
   blocks (K2) and divided by their count, and each phase's share.
 
 The parent's ``_umv`` and ``lu_solve`` are read from its ``solver.py``
@@ -98,6 +99,10 @@ K4_PHASES = ("moments, contractions and Cholesky", "K = Lc^T Vhat Lc",
              "thermal LUs")
 K2_PHASES = ("staging", "block build", "swaps", "elimination",
              "back substitution", "stores", "carry")
+K1_PHASES = ("table staging", "half choice and bisection", "Newton",
+             "eigenvector max", "eigenvector normalised and stored",
+             "thermal particular", "beam LU, zs and beam particular",
+             "barrier and the block's stores")
 
 
 def parent_function(path: Path, name: str, module):
@@ -113,12 +118,33 @@ def parent_function(path: Path, name: str, module):
 
 def occupancy(lib, name: str, N: int) -> int:
     """Elements (K4) or columns (K2) an SM holds at N by the occupancy
-    calculator, from the library's ``pyharp_<name>_occupancy``."""
+    calculator, from the library's ``pyharp_<name>_occupancy``; for K1
+    (``stage1_isotropic_big``) N is 1 for the beam variant, 0 for the
+    thermal one."""
     import ctypes
 
     fn = getattr(lib.lib, f"pyharp_{name}_occupancy")
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return int(fn(N))
+
+
+def big_k1_call(p):
+    """K1's call on an isotropic path's inputs, the beam variant where the
+    path has a beam."""
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    ds = p.disort
+    pr = ds._prepare(*p.args)
+    s1 = (pr["ssa_s"], pr["dtau"], pr["b_top_lay"], pr["slope"])
+    if not pr["has_beam"]:
+        return lambda: K.stage1_isotropic(*s1, ds._ang0)
+    mur = ds._beam_cosine(pr)
+    return lambda: K.stage1_isotropic_beam(*s1, pr["fbeam"], mur, ds._ang0)
+
+
+# K1's timings of ``big``, on the isotropic paths: (key, path)
+BIG_K1 = (("big_k1_thermal_8x2048x20_nstr64", "iso_thermal_8x2048x20_nstr64"),
+          ("big_k1_beam_500x64x20_nstr64", "iso_beam_500x64x20_nstr64"))
 
 
 def big_inputs(what: str, dev):
@@ -187,6 +213,24 @@ def big_part(args, res, libs, timed, lib_setups, lib_turns, dev) -> None:
     def use(name):
         K._library = libs[name]
 
+    for key, what in BIG_K1:
+        use("new")
+        p = big_inputs(what, dev)[0]
+        k1_fn = big_k1_call(p)
+        ref = k1_fn()
+        use("parent")
+        assert all(torch.equal(a, b) for a, b in zip(k1_fn(), ref)), (
+            f"K1 of the parent differs from this tree's on {what}")
+        del ref
+        timed(key, k1_fn, lib_setups, lib_turns, args.reps)
+        beam = "beam" in key
+        for who, lb in libs.items():
+            res[f"{key}_{who}_per_sm"] = occupancy(
+                lb, "stage1_isotropic_big", int(beam))
+        print(f"{key}: elements per SM {res[f'{key}_new_per_sm']} (new), "
+              f"{res[f'{key}_parent_per_sm']} (parent)", flush=True)
+        del p, k1_fn
+        torch.cuda.empty_cache()
     use("new")
     res["big_root_check_bad"] = K.root_check()
     print(f"K4's root against sqrtf on [1, 2^60]: "
@@ -247,6 +291,15 @@ def big_cycles(res, who: str, lib, dev, card: str) -> None:
         return {"units": units, "cycles_per_unit": tot,
                 "phases": {ph: [c, c / tot] for ph, c in zip(phases, per)}}
 
+    for key, what in BIG_K1:
+        key = f"{who}_cycles_{key[4:]}"
+        k1_fn = big_k1_call(big_inputs(what, dev)[0])
+        res[key] = cycles("stage1_isotropic_big", K1_PHASES, k1_fn)
+        res[key]["elements_per_sm"] = occupancy(
+            lib, "stage1_isotropic_big", int("beam" in key))
+        print(f"{key}: {res[key]} [{card}]", flush=True)
+        del k1_fn
+        torch.cuda.empty_cache()
     for what, k2_only in (("aerosol_100x128x40_nstr64", False),
                           ("aerosol_200x128x40_nstr48", False),
                           ("iso_thermal_8x2048x20_nstr64", True)):
@@ -590,7 +643,7 @@ def main() -> None:
     if "big_cycles" in parts:
         for who in ("parent", "new"):
             lb = built["profile" if who == "new" else "parent_profile"]
-            if hasattr(lb.lib, "pyharp_bvp_forward_big_profile"):
+            if hasattr(lb.lib, "pyharp_stage1_isotropic_big_profile"):
                 big_cycles(res, who, lb, dev, card)
 
     K._library = libs["new"]
