@@ -8,7 +8,7 @@ The paths run through the hand-written CUDA kernels of
 ``Disort.forward``: the isotropic thermal problem of ``bench.py`` (8
 g-points x 8192 columns x 100 layers, 8 streams) and amars_lw (kernels K1,
 K2, K3); the 16-stream aerosol problem with a beam of ``bench_extra.py``
-(500 x 128 x 40, K4, K2, K5), and the same at 32, 48 and 64 streams; its 4-stream line-by-line beam problem (500 x
+(500 x 128 x 40, K4, K2, K5), and the same at 32, 48, 64 and 128 streams; its 4-stream line-by-line beam problem (500 x
 512 x 40, K1's beam variant, K2, K3); amars_sw (K1 beam, K2, K3); the YAML
 ``Radiation`` layer.  The radiances of ``Disort.intensities``: every
 azimuthal mode of ``bench_extra.py``'s radiance problem (32 x 512 x 40,
@@ -198,7 +198,7 @@ or more:
     float64 plain path as phase 7 holds them; K4, K2 and K5 against their
     plain versions on the path's inputs, every column, timed;
 21. 34 to 64 streams: ``kernels.route`` sends float32 CUDA tensors at
-    every nstr 2..64 to the kernels, and nstr 66 raises before any launch;
+    every nstr 2..64 to the kernels;
     K4's square root without a range check against ``sqrtf`` on every
     float32 in [1, 2^60] (``kernels.root_check``); at nstr 34, 40, 48, 50, 64 (N = 17, 20, 24, 25, 32), K1 and its beam
     variant and K4 (thermal x beam at m = 0, m = 1, at nstr 64 also m =
@@ -216,7 +216,22 @@ or more:
     nstr 64 (8 x 64 x 20: K4 64 times, held bit-equal at every mode, K2
     and K5 twice, held on the folded modes; radiances against float64
     with float32's resonance floor on every 10th wave, 1e-4 of each
-    column's max|uu| away from a resonance).
+    column's max|uu| away from a resonance);
+22. 66 to 128 streams: the bodies of N = 33..64 (``csrc/*_huge.cu``), their
+    ptxas lines and elements (columns) an SM; ``kernels.route`` sends
+    float32 CUDA tensors at every nstr 2..128 to the kernels, and nstr 130
+    raises before any launch; at nstr 66, 82, 96, 128 (N = 33, 41, 48,
+    64), K1 and its beam variant and K4 (m = 0 with a thermal source and a
+    beam, m = 1 with a beam, at nstr 128 also m = 63) bit-equal to their
+    plain versions on L 3 x B 99 elements (asserted), K2 and K5 on 99
+    columns x 8 layers to phase 3's bound; the off-diagonal K4's 8 Jacobi
+    sweeps leave at N = 64; then through ``kernel="auto"`` as phase 21:
+    aerosol_16str_beam's configuration at nstr 128 (its first 10 waves x
+    128 x 40, ``AEROSOL_HUGE``; float64 on every 5th wave; K4, K2, K5), the
+    isotropic thermal solve (8 x 256 x 20; K1, K2, K5), the isotropic
+    beam (the first 25 of 500 waves x 64 x 20; K1 beam, K2, K5; float64 on
+    every 5th wave) and ``Disort.intensities`` (1 x 16 x 8: K4 128 times,
+    K2 and K5 twice).
 
 The problems, the roofline counts and the card's peaks come from
 ``pyharp_tpu_torch.bench`` (``problems``, ``roofline_run``, ``profile``).
@@ -235,6 +250,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -268,6 +284,17 @@ BIG_SOURCES = {
     "stage1_general": CSRC + "stage1_general_big.cu",
     "bvp_forward": CSRC + "bvp_forward_big.cu",
     "bvp_backward": CSRC + "bvp_backward_big.cu",
+}
+# the sources of the bodies at N = 33..64 (kernels.BIG_MAX_N < N), and the
+# name of each body in ptxas_summary
+HUGE_SOURCES = {k: v.replace("_big.cu", "_huge.cu")
+                for k, v in BIG_SOURCES.items()}
+HUGE_PTXAS = {
+    "stage1_isotropic": "stage1_isotropic_huge<33..64>",
+    "stage1_isotropic_beam": "stage1_isotropic_huge_beam<33..64>",
+    "stage1_general": "stage1_general_huge<33..64>",
+    "bvp_forward": "bvp_forward_huge<33..64>",
+    "bvp_backward": "bvp_backward_huge<33..64>",
 }
 AMARS_SW_TOA = 408.17
 
@@ -380,6 +407,9 @@ def ptxas_summary(log: str) -> dict[str, str]:
             big = re.search(r"(stage1_isotropic|stage1_general|bvp_forward|"
                             r"bvp_backward)_big_kernel(ILb([01])E|"
                             r"ILi(\d+)ELi\d+ELi\d+E)?", m.group(1))
+            huge = re.search(r"(stage1_isotropic|stage1_general|bvp_forward|"
+                             r"bvp_backward)_huge_kernel(ILb([01])E)?",
+                             m.group(1))
             cur = None
             if k:
                 # the second template argument: K1's beam flag, K6's mode,
@@ -399,6 +429,9 @@ def ptxas_summary(log: str) -> dict[str, str]:
                 span = {"6": "17..24", "8": "25..32"}.get(big.group(4),
                                                           "17..32")
                 cur = f"{big.group(1)}_big{beam}<{span}>"
+            elif huge:
+                beam = "_beam" if huge.group(3) == "1" else ""
+                cur = f"{huge.group(1)}_huge{beam}<33..64>"
             continue
         if cur is None:
             continue
@@ -474,7 +507,9 @@ def kernel_record(name, path, launches, fn, plain, args, kw, check, tol,
     src, tpu = KERNEL_TABLE[name]
     N = next(t for t in (*args, *got) if isinstance(t, torch.Tensor)
              and t.dim() == 4).shape[1]
-    if N > K.WIDE_MAX_N:
+    if N > K.BIG_MAX_N:
+        src = HUGE_SOURCES[name]
+    elif N > K.WIDE_MAX_N:
         src = BIG_SOURCES[name]
     elif N > K.NARROW_MAX_N:
         src = WIDE_SOURCES.get(name, src)
@@ -591,16 +626,38 @@ def float32_resonance_floor():
         yield
 
 
+def flux_reference(ds64, args64):
+    """The float64 plain path's fluxes on ``args64``; each column's least
+    distance from a beam resonance (None without a beam); where a column
+    lies within ``RESONANCE_MARGIN`` of one, the fluxes of the float64
+    plain path run with float32's resonance floor (else None)."""
+    def fluxes():
+        pr64 = ds64._prepare(*args64)
+        md64 = ds64._solve_mode(pr64)
+        return ds64._fluxes_from_mode0(pr64, md64)[0], md64
+
+    ref, md64 = fluxes()
+    if "mur" not in md64:              # no beam: no resonance
+        return ref, None, None
+    margin = resonance_margin(md64)
+    ref_f = None
+    if bool((margin < RESONANCE_MARGIN).any()):
+        with float32_resonance_floor():
+            ref_f = fluxes()[0]
+    return ref, margin, ref_f
+
+
 def solve_and_check(ds, ds64, args, args64, want_launches, label, sel=None,
-                    steps=10):
+                    steps=10, reference=None):
     """One counted forward of a path, its float64 checks on every column (on
     the waves ``sel`` where given: ``args64`` holds those alone) and
     ``steps`` timed steps.  Columns with no layer within ``RESONANCE_MARGIN``
     of a beam resonance are held to 1e-4 max|flux| of the float64 plain
     path, the others to ``NEAR_RESONANCE_TOL`` of it run with float32's
-    resonance floor.  Returns (launches, err away, err near against
-    float32's floor, err near against the float64 answer, number of near
-    columns, ms)."""
+    resonance floor.  ``reference``: :func:`flux_reference` of ``ds64`` on
+    ``args64``, computed earlier (else here).  Returns (launches, err away,
+    err near against float32's floor, err near against the float64 answer,
+    number of near columns, ms)."""
     import torch
 
     from pyharp_tpu_torch.rt.disort import kernels as K
@@ -612,22 +669,18 @@ def solve_and_check(ds, ds64, args, args64, want_launches, label, sel=None,
     expect_launches(launches, **want_launches)
     assert bool(torch.isfinite(flux).all()), label
     got = flux if sel is None else flux.index_select(0, sel)
+    if reference is None:
+        reference = flux_reference(ds64, args64)
+    ref, margin, ref_f = reference
 
-    def errs():
-        pr64 = ds64._prepare(*args64)
-        md64 = ds64._solve_mode(pr64)
-        ref = ds64._fluxes_from_mode0(pr64, md64)[0]
-        col = (got.double() - ref).abs().amax(dim=(2, 3)) / ref.abs().max()
-        if "mur" not in md64:          # no beam: no resonance
-            return col, torch.full_like(col, float("inf"))
-        return col, resonance_margin(md64).reshape(col.shape)
+    def err(r):
+        return (got.double() - r).abs().amax(dim=(2, 3)) / r.abs().max()
 
-    col, margin = errs()
+    col = err(ref)
+    margin = (torch.full_like(col, float("inf")) if margin is None
+              else margin.reshape(col.shape))
     near = margin < RESONANCE_MARGIN
-    col_f = col
-    if bool(near.any()):
-        with float32_resonance_floor():
-            col_f, _ = errs()
+    col_f = col if ref_f is None else err(ref_f)
     err_away = float(col[~near].max()) if bool((~near).any()) else 0.0
     err_near = float(col[near].max()) if bool(near.any()) else 0.0
     err_near_f = float(col_f[near].max()) if bool(near.any()) else 0.0
@@ -1057,13 +1110,15 @@ def beam_records(path, launches, pr, md, ang, near=None,
             kernel_flops("bvp_backward", N, L, B), near=near, once=once))
     return recs
 
-def radiance_k4(ds, pr, modes):
+def radiance_k4(ds, pr, modes, check=None):
     """K4 at every mode of a radiance solve (no thermal source) as the path
     launches it, m = 0 then the modes m >= 1 with their zero thermal
     inputs, and its plain version: m = 0, then the modes m >= 1 in one pass
     (``kernels.stage1_general_modes_plain``, the bits of a call per mode).
     Returns ``(kernel, plain, lam00)``, the first two taking no arguments
-    and giving every mode's outputs in one tuple."""
+    and giving every mode's outputs in one tuple; with ``check``, a set of
+    modes m >= 1, only m = 0's and theirs (the kernel still launched at
+    every mode, the plain version run at those alone)."""
     import torch
 
     from pyharp_tpu_torch.rt.disort import kernels as K
@@ -1075,20 +1130,24 @@ def radiance_k4(ds, pr, modes):
     s4 = (pr["ssa_s"], pr["pmom_s"], pr["dtau"])
     b4 = dict(fbeam=pr["fbeam"], mur=modes["mur"])
     zero = torch.zeros_like(pr["ssa_s"])
+    keep = [i for i, m in enumerate(modes["ms"]) if check is None or m in check]
 
     def kernel():
         outs = K.stage1_general(*s4, pr["b_top_lay"], pr["slope"], ang0,
                                 thermal=False, lam0=lam00, **b4)
-        for a, l0 in zip(angs, modes["lam0"]):
-            outs += K.stage1_general(*s4, zero, zero, a, thermal=False,
-                                     lam0=l0, **b4)
+        for i, (a, l0) in enumerate(zip(angs, modes["lam0"])):
+            o = K.stage1_general(*s4, zero, zero, a, thermal=False, lam0=l0,
+                                 **b4)
+            if i in keep:
+                outs += o
         return outs
 
     def plain():
         outs = K.stage1_general_plain(*s4, pr["b_top_lay"], pr["slope"],
                                       ang0, thermal=False, lam0=lam00, **b4)
-        for o in K.stage1_general_modes_plain(*s4, angs, lam0s=modes["lam0"],
-                                              **b4):
+        for o in K.stage1_general_modes_plain(
+                *s4, [angs[i] for i in keep],
+                lam0s=[modes["lam0"][i] for i in keep], **b4):
             outs += o
         return outs
 
@@ -1720,6 +1779,151 @@ def phase20(dev, card: str, regs: dict) -> list:
     return kernels_json
 
 
+def stream_path(phase, t0, card, clock_mhz, ptxas, label, p, want, stride,
+                tag, reference=None):
+    """A solve through ``kernel="auto"`` against the float64 plain path on
+    every ``stride``-th wave (``reference``, its :func:`flux_reference`,
+    where computed earlier), its kernels against their plain versions on
+    its own inputs (every column, the plain versions once), its peak device
+    memory and step (phases 21, 22); returns the kernels' entries."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    ds64, args64, sel = wave_subset(p, stride, torch.float64, "torch")
+    res = solve_and_check(p.disort, ds64, (p.prop, p.bc, p.temf), args64,
+                          want, label, sel=sel if stride > 1 else None,
+                          steps=3, reference=reference)
+    del ds64, args64
+    torch.cuda.empty_cache()
+    pr = p.disort._prepare(p.prop, p.bc, p.temf)
+    md = p.disort._solve_mode(pr)
+    if "mur" in md:
+        near = resonance_margin(md) < RESONANCE_MARGIN
+        recs = beam_records(tag, res[0], pr, md, p.disort._ang0,
+                            near=near, once=True)
+    else:
+        recs = thermal_records(tag, res[0], pr, md, p.disort._ang0,
+                               once=True)
+    floor = ""
+    if recs[0]["name"].startswith("stage1_isotropic"):
+        floor = "; " + k1_floor_text(md["sol"].gp.shape[0], pr["L"],
+                                     pr["B"], clock_mhz)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    line = flux_line(label, res, card)
+    if stride > 1:
+        line = line.replace("plain:", f"plain on every {stride}th wave "
+                            f"({len(sel)} waves):", 1)
+    say(phase, line + f"; peak device memory {peak:.1f} GiB; step "
+               f"{res[5]:.3f} ms; per kernel: " + records_line(ptxas(recs))
+               + floor + f"; {time.perf_counter() - t0:.1f} s into "
+               f"phase {phase}")
+    for r in recs:
+        r["peak_gib"] = peak
+    del pr, md
+    torch.cuda.empty_cache()
+    return recs
+
+
+def radiance_path(phase, dev, card, shape, ptxas, reference=None,
+                  k4_modes=None) -> list:
+    """The radiances of ``radiance_problem`` at ``shape`` (nwave, ncol,
+    nlyr, nstr) through ``kernel="auto"``: K4 once per mode (nstr), K2 and
+    K5 twice; float64 on every 10th wave with float32's resonance floor (on
+    the columns with every layer over RESONANCE_MARGIN from a resonance the
+    floor never acts, so there that run is the float64 answer;
+    ``reference``, :func:`radiance_reference`'s first two outputs under
+    that floor, where computed earlier); each kernel against its plain
+    version on the path's inputs, K4 bit-equal at every mode (at m = 0 and
+    the modes ``k4_modes`` where given, every mode timed) (phases 21, 22).
+    Returns the kernels' entries."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import radiance_problem
+    from pyharp_tpu_torch.bench.roofline_run import kernel_flops
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    nstr = shape[3]
+    torch.cuda.reset_peak_memory_stats()
+    p = radiance_problem(torch.float32, dev, "auto", shape=shape)
+    ds = p.disort
+    K.reset_launches()
+    out = ds.intensities(p.prop, p.bc)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    expect_launches(launches, stage1_general=nstr, bvp_forward=2,
+                    bvp_backward=2)
+    ds64, args64, sel = wave_subset(p, 10, torch.float64, "torch")
+    if reference is None:
+        with float32_resonance_floor():
+            reference = radiance_reference(ds64, args64[:2])[:2]
+    ref_f, margin = reference
+    ncol = ds.options.ncol
+    near = (margin < RESONANCE_MARGIN).reshape(len(sel), ncol)
+    sub = {k: out[k].index_select(0, sel) for k in ("flux", "uu")}
+    res = radiance_errors(sub, ref_f, ref_f, near)
+    del ds64, args64, ref_f, sub
+    torch.cuda.empty_cache()
+    ms_step = cuda_ms(lambda: ds.intensities(p.prop, p.bc)["uu"], 2)
+    pr = ds._prepare(p.prop, p.bc, None)
+    modes = ds._modes_batched(pr)
+    fgp, fgm, fexpd, dblk, alb = modes["fold"]
+    L, B, N, nm = pr["L"], pr["B"], modes["N"], len(modes["ms"])
+    tag = f"radiances {'x'.join(map(str, shape[:3]))} nstr {nstr}"
+    ang0 = ds._ang0
+    k4_kernel, k4_plain, lam00 = radiance_k4(ds, pr, modes, k4_modes)
+    nmom = pr["pmom_s"].shape[1]
+    held = ("" if k4_modes is None else
+            " (held at m = " + ", ".join(map(str, (0, *sorted(k4_modes))))
+            + ")")
+    recs = [kernel_record(
+        "stage1_general", tag + f", modes 0..{nm}" + held,
+        launches["stage1_general"],
+        k4_kernel, k4_plain, (), {}, stage1_exact, STAGE1_TOL,
+        (nm + 1) * kernel_flops("stage1_general", N, L, B, nmom=nmom,
+                                sweeps=K.kernel_sweeps(N), thermal=False,
+                                beam=True),
+        reads=[pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["fbeam"],
+               modes["mur"]] * (nm + 1) + [lam00, modes["lam0"]], once=True)]
+    recs[0]["bit_equal"] = True
+    if k4_modes is not None:           # its plain_ms times those modes
+        recs[0]["plain_modes"] = len(k4_modes) + 1
+    near_fold = (modes_margin(modes) < RESONANCE_MARGIN).reshape(nm * B)
+    recs.append(kernel_record(
+        "bvp_forward", tag + f", modes 1..{nm} folded",
+        launches["bvp_forward"], K.bvp_forward, K.bvp_forward_plain,
+        (fgp, fgm, fexpd, dblk, alb, ang0), {}, bvp_check, BVP_TOL,
+        kernel_flops("bvp_forward", N, L, nm * B), near=near_fold, once=True))
+    Pm, gm_ = K.bvp_forward(fgp, fgm, fexpd, dblk, alb, ang0)
+    recs.append(kernel_record(
+        "bvp_backward", tag + f", modes 1..{nm} folded",
+        launches["bvp_backward"], K.bvp_backward, K.bvp_backward_plain,
+        (fgp, fgm, fexpd, Pm, gm_, ang0), {}, bvp_check, BVP_TOL,
+        kernel_flops("bvp_backward", N, L, nm * B), near=near_fold,
+        once=True))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nrad = out["uu"].numel()
+    n_near = int(near.sum())
+    say(phase, f"radiances {'x'.join(map(str, shape[:3]))} nstr {nstr}: "
+               f"launches {launches}; uu {tuple(out['uu'].shape)} finite; vs "
+               f"the float64 plain path with float32's resonance floor on "
+               f"every 10th wave ({len(sel)} waves x {ncol} columns): "
+               + "; ".join(
+                   f"{k} {a:.2e} on the {near.numel() - n_near} columns away "
+                   f"from a resonance (<= 1e-4{' of the column' if k == 'uu' else ''}), "
+                   f"{f:.2e} on the {n_near} near ones (<= {NEAR_RESONANCE_TOL})"
+                   for k, (a, f, _, _) in res.items())
+               + f"; peak device memory {peak:.1f} GiB; step {ms_step:.3f} ms "
+               f"= {nrad / ms_step * 1e3:.0f} radiances/s ({nrad}); per "
+               f"kernel (K4 over the {nm + 1} modes, bit-equal to its plain "
+               f"version on every column{held}): " + records_line(ptxas(recs))
+               + f" [{card}]")
+    for r in recs:
+        r["peak_gib"] = peak
+    del p, ds, out, pr, modes, fgp, fgm, fexpd, dblk, alb, Pm, gm_
+    torch.cuda.empty_cache()
+    return recs
+
+
 # ---- 34 to 64 streams (phase 21) --------------------------------------------
 
 # the stream counts phase 21 holds the bodies of N = 17..32 at, each to its
@@ -1732,19 +1936,76 @@ BIG_CHECK_SHAPE = (7, 1017)
 # waves cut to what the card's memory holds beside the plain versions that
 # check every column
 AEROSOL_BIG = ((64, 100), (48, 200))
+# the radiances at nstr 64 (waves, columns, layers, nstr)
+RADIANCE_BIG = (8, 64, 20, 64)
 
 
-def phase21(dev, card: str, regs: dict) -> list:
+def big_paths(dev):
+    """Phase 21's solves: ``(key, problem, launches, stride, tag, label)``
+    each, the problem built from its seed: aerosol_16str_beam's
+    configuration at nstr 64 and 48 (HG g 0.8, a beam, 128 columns, 40
+    layers), its 500 waves cut to the first ones (``AEROSOL_BIG``); the
+    isotropic thermal and beam solves at nstr 64 (phase 19's shapes)."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import bench_problem, extra_problem
+
+    for nstr, nw in AEROSOL_BIG:
+        yield (f"aerosol{nstr}",
+               extra_problem(500, 128, 40, nstr, g=0.8, device=dev,
+                             kernel="auto", first=nw),
+               dict(stage1_general=1, bvp_forward=1, bvp_backward=1), 10,
+               f"aerosol {nw}x128x40 nstr {nstr}",
+               f"aerosol_16str_beam's configuration {nw}x128x40 (the first "
+               f"{nw} of its 500 waves) at nstr {nstr}, HG g 0.8")
+    yield ("thermal", bench_problem(8, 2048, 20, 64, torch.float32, dev,
+                                    "auto"),
+           dict(stage1_isotropic=1, bvp_forward=1, bvp_backward=1), 1,
+           "bench 8x2048x20 nstr 64", "isotropic thermal 8x2048x20 nstr 64")
+    yield ("beam", extra_problem(500, 64, 20, 64, beam=True, device=dev,
+                                 kernel="auto"),
+           dict(stage1_isotropic_beam=1, bvp_forward=1, bvp_backward=1), 10,
+           "isotropic beam 500x64x20 nstr 64",
+           "isotropic beam 500x64x20 nstr 64")
+
+
+def path_references(dev, paths, radiance_shape) -> dict:
+    """The float64 references of a phase's solves, computed before the
+    kernels are built (``main`` runs them while ``nvcc`` compiles): each
+    of ``paths(dev)``'s :func:`flux_reference` on its checked waves, and
+    the radiances of ``radiance_shape``'s problem on every 10th wave under
+    float32's resonance floor (:func:`radiance_reference`'s first two
+    outputs), with the seconds they took."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import radiance_problem
+
+    t0 = time.perf_counter()
+    refs = {}
+    for key, p, _, stride, _, _ in paths(dev):
+        ds64, args64, _ = wave_subset(p, stride, torch.float64, "torch")
+        refs[key] = flux_reference(ds64, args64)
+        del p, ds64, args64
+    p = radiance_problem(torch.float32, dev, "auto", shape=radiance_shape)
+    ds64, args64, _ = wave_subset(p, 10, torch.float64, "torch")
+    with float32_resonance_floor():
+        refs["radiances"] = radiance_reference(ds64, args64[:2])[:2]
+    del p, ds64, args64
+    torch.cuda.empty_cache()
+    refs["seconds"] = time.perf_counter() - t0
+    return refs
+
+
+def phase21(dev, card: str, regs: dict, refs: dict | None = None) -> list:
     """Phase 21, 34 to 64 streams: the route, every body of N = 17..32
     against its plain version at ``NSTR_BIG``, then the four full-width
     paths of this range through ``kernel="auto"``; returns the entries of
-    the ``kernels`` line."""
+    the ``kernels`` line.  ``refs``: the paths' float64 references
+    (:func:`path_references` of :func:`big_paths`), computed earlier
+    (else in each path)."""
     import torch
 
-    from pyharp_tpu_torch.bench.problems import (bench_problem, extra_problem,
-                                                 radiance_problem,
-                                                 stage1_inputs)
-    from pyharp_tpu_torch.bench.roofline_run import kernel_flops
+    from pyharp_tpu_torch.bench.problems import extra_problem, stage1_inputs
     from pyharp_tpu_torch.rt.disort import kernels as K
     from pyharp_tpu_torch.rt.disort.legendre import lepoly
     from pyharp_tpu_torch.rt.disort.solver import make_static_angles
@@ -1767,21 +2028,11 @@ def phase21(dev, card: str, regs: dict) -> list:
             r["ptxas"] = big[r["name"]]
         return recs
 
-    # the route: every nstr 2..64 in float32 on the card to the kernels, 66
-    # raises before any launch
+    # the route: every nstr 2..64 in float32 on the card to the kernels
+    # (phase 22 holds nstr 66..128 and the refusal past them)
     assert all(K.route("auto", "cuda", torch.float32, n) == "cuda"
                for n in range(1, 33))
-    p = extra_problem(2, 8, 4, 66, g=0.8, device=dev, kernel="auto")
-    K.reset_launches()
-    try:
-        p.disort.forward(p.prop, p.bc)
-        raise AssertionError("nstr 66 in float32 on the card did not raise")
-    except ValueError as exc:
-        assert "no CUDA kernel for N = 33" in str(exc), exc
-    assert not any(K.launch_counts().values()), K.launch_counts()
-    del p
-    say("21", "route: float32 CUDA tensors at nstr 2..64 -> 'cuda'; nstr 66 "
-              "raises before any launch")
+    say("21", "route: float32 CUDA tensors at nstr 2..64 -> 'cuda'")
     bad = K.root_check()
     assert bad == 0, (f"K4's square root at N = 17..32 differs from sqrtf on "
                       f"{bad} float32 values in [1, 2^60]")
@@ -1848,148 +2099,269 @@ def phase21(dev, card: str, regs: dict) -> list:
               f"bit-equal; {BVP_TOL}); {time.perf_counter() - t21:.1f} s "
               f"into phase 21 [{card}]")
 
-    def path(label, p, want, stride, tag):
-        """A solve through ``kernel="auto"`` against the float64 plain path
-        on every ``stride``-th wave, its kernels against their plain
-        versions on its own inputs (every column, the plain versions once),
-        its peak device memory and step."""
-        torch.cuda.reset_peak_memory_stats()
-        ds64, args64, sel = wave_subset(p, stride, torch.float64, "torch")
-        res = solve_and_check(p.disort, ds64, (p.prop, p.bc, p.temf), args64,
-                              want, label, sel=sel if stride > 1 else None,
-                              steps=3)
-        del ds64, args64
-        torch.cuda.empty_cache()
-        pr = p.disort._prepare(p.prop, p.bc, p.temf)
-        md = p.disort._solve_mode(pr)
-        if "mur" in md:
-            near = resonance_margin(md) < RESONANCE_MARGIN
-            recs = beam_records(tag, res[0], pr, md, p.disort._ang0,
-                                near=near, once=True)
-        else:
-            recs = thermal_records(tag, res[0], pr, md, p.disort._ang0,
-                                   once=True)
-        floor = ""
-        if recs[0]["name"].startswith("stage1_isotropic"):
-            floor = "; " + k1_floor_text(md["sol"].gp.shape[0], pr["L"],
-                                         pr["B"], clock_mhz)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        line = flux_line(label, res, card)
-        if stride > 1:
-            line = line.replace("plain:", f"plain on every {stride}th wave "
-                                f"({len(sel)} waves):", 1)
-        say("21", line + f"; peak device memory {peak:.1f} GiB; step "
-                  f"{res[5]:.3f} ms; per kernel: " + records_line(ptxas(recs))
-                  + floor + f"; {time.perf_counter() - t21:.1f} s into "
-                  "phase 21")
+    def path(label, p, want, stride, tag, reference):
+        return stream_path("21", t21, card, clock_mhz, ptxas, label, p, want,
+                           stride, tag, reference)
+
+    for key, p, want, stride, tag, label in big_paths(dev):
+        kernels_json += path(label, p, want, stride, tag,
+                             None if refs is None else refs[key])
+        del p
+    torch.cuda.empty_cache()
+
+    # the radiances at nstr 64: K4 once per mode (64), K2 and K5 twice
+    kernels_json += radiance_path("21", dev, card, RADIANCE_BIG, ptxas,
+                                  None if refs is None else refs["radiances"])
+    say("21", f"phase 21 took {time.perf_counter() - t21:.1f} s [{card}]")
+    return kernels_json
+
+
+# ---- 66 to 128 streams (phase 22) -------------------------------------------
+
+# the stream counts phase 22 holds the bodies of N = 33..64 at, each to its
+# plain version: N = 33, 41, 48, 64 (odd and even, the ends)
+NSTR_HUGE = (66, 82, 96, 128)
+# (L, B) of those checks: L B no multiple of K1's 8 (thermal) or 6 (beam)
+# or K4's 2 elements a block, B no multiple of K5's tile of 32; K2 and K5
+# on its B columns x L layers
+HUGE_CHECK_SHAPE = (3, 99)
+# the paths at nstr 128 through kernel="auto", each cut to phase 22's
+# time (the plain versions that check every column take 5-60 s a call
+# there, by their launches more than their widths): aerosol_16str_beam's
+# configuration, the first 10 of its 500 waves (128 columns, 40 layers);
+# the isotropic thermal solve (waves, columns, layers) and the isotropic
+# beam solve (its first 25 of 500 waves, 63 columns, 21 layers), each
+# with an odd L B, so that they hold K1 and K1 beam at nstr 128 as the
+# check shape does at the smaller nstr; the radiances (waves, columns,
+# layers, nstr), K4 held at m = 0 and RADIANCE_HUGE_MODES (every mode
+# timed)
+AEROSOL_HUGE = (128, 10)
+THERMAL_HUGE = (7, 255, 21)
+BEAM_HUGE = (25, 63, 21)
+RADIANCE_HUGE = (1, 16, 8, 128)
+RADIANCE_HUGE_MODES = (1, 2, 63, 64, 126, 127)
+
+
+def jacobi_offdiag(ssa, pmom, ang, sweeps: int) -> float:
+    """The off-diagonal that K4's ``sweeps`` Jacobi sweeps leave: the
+    symmetric matrix K = Lc^T Vhat Lc of each element formed and swept by
+    the plain float32 operations (``solver._homogeneous_core``, bit-equal
+    to K4), then max |(Y^T K Y)_ij|, i != j, over max |lam^2|, in float64,
+    the largest over the elements."""
+    import torch
+
+    from pyharp_tpu_torch.rt.disort import solver as S
+    from pyharp_tpu_torch.rt.disort.jacobi import jacobi_eigh
+    from pyharp_tpu_torch.rt.disort.linsolve import cholesky_lower
+
+    Se, So = S._parity_operators(ssa, pmom, ang)
+    mu, w = S._const(ang.mu, ssa), S._const(ang.w, ssa)
+    N = mu.shape[0]
+    sqw, sqm, eye = torch.sqrt(w), torch.sqrt(mu), S._eye(N, ssa)
+
+    def hat(M):
+        core = eye - ssa[None, None] * (sqw[:, None, None, None] * M
+                                         * sqw[None, :, None, None])
+        return core / (sqm[:, None, None, None] * sqm[None, :, None, None])
+
+    Lc = cholesky_lower(hat(Se), floor=1e-12)
+    Km = S._umm(Lc.transpose(0, 1), S._mm(hat(So), Lc))
+    lam2, Y = jacobi_eigh(Km, sweeps)
+    Kd, Yd = Km.double(), Y.double()
+    R = torch.einsum("ki...,kl...,lj...->ij...", Yd, Kd, Yd)
+    off = R - torch.diag_embed(torch.diagonal(R, dim1=0, dim2=1)).movedim(
+        (-2, -1), (0, 1))
+    return float((off.abs().amax(dim=(0, 1))
+                  / lam2.double().abs().amax(dim=0)).max())
+
+
+def huge_paths(dev):
+    """Phase 22's solves at nstr 128: ``(key, problem, launches, stride,
+    tag, label)`` each, the problem built from its seed."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import bench_problem, extra_problem
+
+    nstr, nw = AEROSOL_HUGE
+    yield ("aerosol",
+           extra_problem(500, 128, 40, nstr, g=0.8, device=dev,
+                         kernel="auto", first=nw),
+           dict(stage1_general=1, bvp_forward=1, bvp_backward=1), 5,
+           f"aerosol {nw}x128x40 nstr {nstr}",
+           f"aerosol_16str_beam's configuration {nw}x128x40 (the first {nw} "
+           f"of its 500 waves) at nstr {nstr}, HG g 0.8")
+    nwave, ncol, nlyr = THERMAL_HUGE
+    shape = f"{nwave}x{ncol}x{nlyr}"
+    yield ("thermal",
+           bench_problem(nwave, ncol, nlyr, 128, torch.float32, dev, "auto"),
+           dict(stage1_isotropic=1, bvp_forward=1, bvp_backward=1), 1,
+           f"bench {shape} nstr 128", f"isotropic thermal {shape} nstr 128")
+    nwave, ncol, nlyr = BEAM_HUGE
+    shape = f"{nwave}x{ncol}x{nlyr}"
+    yield ("beam",
+           extra_problem(500, ncol, nlyr, 128, beam=True, device=dev,
+                         kernel="auto", first=nwave),
+           dict(stage1_isotropic_beam=1, bvp_forward=1, bvp_backward=1), 5,
+           f"isotropic beam {shape} nstr 128",
+           f"isotropic beam {shape} (the first {nwave} of 500 waves) "
+           "nstr 128")
+
+
+def phase22_references(dev) -> dict:
+    """What phase 22 needs of the plain versions alone, computed before the
+    kernels are built: :func:`path_references` of :func:`huge_paths` and
+    ``RADIANCE_HUGE``, and the off-diagonal K4's sweeps leave at N = 64
+    (:func:`jacobi_offdiag`, on the first 2 layers x 128 columns of the
+    aerosol path)."""
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    t0 = time.perf_counter()
+    refs = path_references(dev, huge_paths, RADIANCE_HUGE)
+    p = next(huge_paths(dev))[1]
+    pr = p.disort._prepare(p.prop, p.bc, p.temf)
+    sweeps = K.kernel_sweeps(p.disort._ang0.mu.shape[0])
+    refs["offdiag"] = (sweeps, jacobi_offdiag(
+        pr["ssa_s"][:2], pr["pmom_s"][:2], p.disort._ang0, sweeps))
+    del p, pr
+    refs["seconds"] = time.perf_counter() - t0
+    return refs
+
+
+def phase22(dev, card: str, regs: dict, refs: dict | None = None) -> list:
+    """Phase 22, 66 to 128 streams: the route, every body of N = 33..64
+    against its plain version at ``NSTR_HUGE``, K4's off-diagonal after its
+    sweeps at N = 64, then the four paths at nstr 128 through
+    ``kernel="auto"``; returns the entries of the ``kernels`` line.
+    ``refs``: :func:`phase22_references`, computed earlier (else here)."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import extra_problem, stage1_inputs
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from pyharp_tpu_torch.rt.disort.legendre import lepoly
+    from pyharp_tpu_torch.rt.disort.solver import make_static_angles
+
+    t22 = time.perf_counter()
+    kernels_json = []
+    clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"]).splitlines()[0])
+    lib = K.build().lib
+    # elements (K1, K4), columns (K2, K5) an SM by the occupancy calculator
+    per_sm = {"stage1_isotropic": lib.pyharp_stage1_isotropic_huge_occupancy(0),
+              "stage1_isotropic_beam":
+                  lib.pyharp_stage1_isotropic_huge_occupancy(1),
+              "stage1_general": lib.pyharp_stage1_general_huge_occupancy(64),
+              "bvp_forward": lib.pyharp_bvp_forward_huge_occupancy(64),
+              "bvp_backward": lib.pyharp_bvp_backward_huge_occupancy()}
+    unit = {"bvp_forward": "columns", "bvp_backward": "columns"}
+    huge = {n: f"{regs.get(HUGE_PTXAS[n])}, {per_sm[n]} "
+               f"{unit.get(n, 'elements')} an SM at N = 64"
+            for n in HUGE_PTXAS}
+    say("22", "the bodies of N = 33..64: " + "; ".join(
+        f"{n} {v}" for n, v in huge.items()) + f" [{card}]")
+
+    def ptxas(recs):
         for r in recs:
-            r["peak_gib"] = peak
-        del pr, md
-        torch.cuda.empty_cache()
+            r["ptxas"] = huge[r["name"]]
         return recs
 
-    # aerosol_16str_beam's configuration at nstr 64 and 48 (HG g 0.8, a
-    # beam, 128 columns, 40 layers), its 500 waves cut to the first ones
-    for nstr, nw in AEROSOL_BIG:
-        label = (f"aerosol_16str_beam's configuration {nw}x128x40 (the first "
-                 f"{nw} of its 500 waves) at nstr {nstr}, HG g 0.8")
-        p = extra_problem(500, 128, 40, nstr, g=0.8, device=dev,
-                          kernel="auto", first=nw)
-        kernels_json += path(label, p, dict(stage1_general=1, bvp_forward=1,
-                                            bvp_backward=1), 10,
-                             f"aerosol {nw}x128x40 nstr {nstr}")
-        del p
-    # the isotropic thermal and beam solves at nstr 64 (phase 19's shapes)
-    p = bench_problem(8, 2048, 20, 64, torch.float32, dev, "auto")
-    kernels_json += path("isotropic thermal 8x2048x20 nstr 64", p,
-                         dict(stage1_isotropic=1, bvp_forward=1,
-                              bvp_backward=1), 1,
-                         "bench 8x2048x20 nstr 64")
-    del p
-    p = extra_problem(500, 64, 20, 64, beam=True, device=dev, kernel="auto")
-    kernels_json += path("isotropic beam 500x64x20 nstr 64", p,
-                         dict(stage1_isotropic_beam=1, bvp_forward=1,
-                              bvp_backward=1), 10,
-                         "isotropic beam 500x64x20 nstr 64")
-    del p
-    torch.cuda.empty_cache()
-
-    # the radiances at nstr 64: K4 once per mode (64), K2 and K5 twice;
-    # float64 on every 10th wave with float32's resonance floor (on the
-    # columns with every layer over RESONANCE_MARGIN from a resonance the
-    # floor never acts, so there that run is the float64 answer)
-    shape = (8, 64, 20, 64)
-    torch.cuda.reset_peak_memory_stats()
-    p = radiance_problem(torch.float32, dev, "auto", shape=shape)
-    ds = p.disort
+    # the route: every nstr 2..128 in float32 on the card to the kernels,
+    # 130 raises before any launch
+    assert all(K.route("auto", "cuda", torch.float32, n) == "cuda"
+               for n in range(1, 65))
+    p = extra_problem(2, 8, 4, 130, g=0.8, device=dev, kernel="auto")
     K.reset_launches()
-    out = ds.intensities(p.prop, p.bc)
-    torch.cuda.synchronize()
-    launches = K.launch_counts()
-    expect_launches(launches, stage1_general=shape[3], bvp_forward=2,
-                    bvp_backward=2)
-    ds64, args64, sel = wave_subset(p, 10, torch.float64, "torch")
-    with float32_resonance_floor():
-        ref_f, margin, _ = radiance_reference(ds64, args64[:2])
-    ncol = ds.options.ncol
-    near = (margin < RESONANCE_MARGIN).reshape(len(sel), ncol)
-    sub = {k: out[k].index_select(0, sel) for k in ("flux", "uu")}
-    res21 = radiance_errors(sub, ref_f, ref_f, near)
-    del ds64, args64, ref_f, sub
+    try:
+        p.disort.forward(p.prop, p.bc)
+        raise AssertionError("nstr 130 in float32 on the card did not raise")
+    except ValueError as exc:
+        assert "no CUDA kernel for N = 65" in str(exc), exc
+    assert not any(K.launch_counts().values()), K.launch_counts()
+    del p
+    say("22", "route: float32 CUDA tensors at nstr 2..128 -> 'cuda'; nstr "
+              "130 raises before any launch")
+
+    # each body against its plain version on HUGE_CHECK_SHAPE's elements:
+    # K1 beam, and K1 against the beam variant's plain eigenstructure (the
+    # same function), bit-equal (at nstr 128 on the isotropic paths below,
+    # whose L B is as odd); K4 (m = 0 with a thermal source and a beam, m =
+    # 1 with a beam, at nstr 128 also m = 63) bit-equal; K2 and K5 on its
+    # B columns x L layers, on K4's m = 0 eigenstructure with a drawn
+    # right-hand side and albedo
+    msgs = []
+    L, B = HUGE_CHECK_SHAPE
+    for nstr in NSTR_HUGE:
+        N = nstr // 2
+        ang = make_static_angles(nstr, nstr, 0)
+        rng = np.random.default_rng(1900 + nstr)
+        ssa, dtau, btop, slope = stage1_inputs(L, B, seed=1910 + nstr,
+                                               device=dev)
+        fbeam = torch.tensor(rng.uniform(0.5, 4.0, B), dtype=torch.float32,
+                             device=dev)
+        mu0 = torch.tensor(rng.uniform(0.1, 1.0, B), dtype=torch.float32,
+                           device=dev)
+        mur = mu0[None].expand(L, B).contiguous()
+        k1 = "K1, K1 beam on the isotropic paths"
+        if nstr != NSTR_HUGE[-1]:
+            s1b = (ssa, dtau, btop, slope, fbeam, mur, ang)
+            want = K.stage1_isotropic_beam_plain(*s1b)
+            stage1_exact(K.stage1_isotropic_beam(*s1b), want,
+                         f"K1 beam nstr {nstr}")
+            stage1_exact(K.stage1_isotropic(ssa, dtau, btop, slope, ang),
+                         want[:7], f"K1 nstr {nstr}")
+            k1 = "K1, K1 beam bit-equal"
+            del want
+        pm = torch.tensor(
+            np.stack([hg_moments(0.2 if b % 2 else 0.8, nstr)
+                      for b in range(B)], axis=-1)[None].repeat(L, axis=0),
+            dtype=torch.float32, device=dev)
+        modes = (0, 1) + ((N - 1,) if nstr == NSTR_HUGE[-1] else ())
+        for m in modes:
+            angm = make_static_angles(nstr, nstr, m)
+            lam0 = lepoly(mu0, m, angm.lam_tables.shape[0] - 1).contiguous()
+            kw = dict(thermal=m == 0, fbeam=fbeam, mur=mur, lam0=lam0)
+            a4 = (ssa, pm, dtau, btop, slope, angm)
+            want = K.stage1_general_plain(*a4, **kw)
+            stage1_exact(K.stage1_general(*a4, **kw), want,
+                         f"K4 nstr {nstr} m {m} thermal {m == 0}")
+            if m == 0:
+                gp, gm, _, expd = want[:4]
+            del want
+        dblk = torch.tensor(rng.uniform(-1.0, 1.0, (2 * N, L, B)),
+                            dtype=torch.float32, device=dev)
+        alb = torch.tensor(rng.uniform(0.0, 0.6, B), dtype=torch.float32,
+                           device=dev)
+        P, g = K.bvp_forward_plain(gp, gm, expd, dblk, alb, ang)
+        e2 = bvp_check(K.bvp_forward(gp, gm, expd, dblk, alb, ang), (P, g),
+                       f"K2 nstr {nstr}")
+        bwd = (gp, gm, expd, P, g, ang)
+        e5 = bvp_check(K.bvp_backward(*bwd), K.bvp_backward_plain(*bwd),
+                       f"K5 nstr {nstr}")
+        msgs.append(f"nstr {nstr}: {k1}; K4 (m "
+                    + ", ".join(map(str, modes)) + f") bit-equal; K2 "
+                    f"{e2:.2e}, K5 {e5:.2e}")
+        del pm, gp, gm, expd, dblk, P, g, bwd
     torch.cuda.empty_cache()
-    ms_step = cuda_ms(lambda: ds.intensities(p.prop, p.bc)["uu"], 2)
-    pr = ds._prepare(p.prop, p.bc, None)
-    modes = ds._modes_batched(pr)
-    fgp, fgm, fexpd, dblk, alb = modes["fold"]
-    L, B, N, nm = pr["L"], pr["B"], modes["N"], len(modes["ms"])
-    tag = "radiances 8x64x20 nstr 64"
-    ang0 = ds._ang0
-    k4_kernel, k4_plain, lam00 = radiance_k4(ds, pr, modes)
-    nmom = pr["pmom_s"].shape[1]
-    recs = [kernel_record(
-        "stage1_general", tag + f", modes 0..{nm}", launches["stage1_general"],
-        k4_kernel, k4_plain, (), {}, stage1_exact, STAGE1_TOL,
-        (nm + 1) * kernel_flops("stage1_general", N, L, B, nmom=nmom,
-                                sweeps=K.kernel_sweeps(N), thermal=False,
-                                beam=True),
-        reads=[pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["fbeam"],
-               modes["mur"]] * (nm + 1) + [lam00, modes["lam0"]], once=True)]
-    recs[0]["bit_equal"] = True
-    near_fold = (modes_margin(modes) < RESONANCE_MARGIN).reshape(nm * B)
-    recs.append(kernel_record(
-        "bvp_forward", tag + f", modes 1..{nm} folded",
-        launches["bvp_forward"], K.bvp_forward, K.bvp_forward_plain,
-        (fgp, fgm, fexpd, dblk, alb, ang0), {}, bvp_check, BVP_TOL,
-        kernel_flops("bvp_forward", N, L, nm * B), near=near_fold, once=True))
-    Pm, gm_ = K.bvp_forward(fgp, fgm, fexpd, dblk, alb, ang0)
-    recs.append(kernel_record(
-        "bvp_backward", tag + f", modes 1..{nm} folded",
-        launches["bvp_backward"], K.bvp_backward, K.bvp_backward_plain,
-        (fgp, fgm, fexpd, Pm, gm_, ang0), {}, bvp_check, BVP_TOL,
-        kernel_flops("bvp_backward", N, L, nm * B), near=near_fold,
-        once=True))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    nrad = out["uu"].numel()
-    n_near = int(near.sum())
-    say("21", f"radiances {'x'.join(map(str, shape[:3]))} nstr 64: launches "
-              f"{launches}; uu {tuple(out['uu'].shape)} finite; vs the "
-              f"float64 plain path with float32's resonance floor on every "
-              f"10th wave ({len(sel)} waves x {ncol} columns): " + "; ".join(
-                  f"{k} {a:.2e} on the {near.numel() - n_near} columns away "
-                  f"from a resonance (<= 1e-4{' of the column' if k == 'uu' else ''}), "
-                  f"{f:.2e} on the {n_near} near ones (<= {NEAR_RESONANCE_TOL})"
-                  for k, (a, f, _, _) in res21.items())
-              + f"; peak device memory {peak:.1f} GiB; step {ms_step:.3f} ms "
-              f"= {nrad / ms_step * 1e3:.0f} radiances/s ({nrad}); per "
-              f"kernel (K4 over the {nm + 1} modes, bit-equal to its plain "
-              "version on every column): " + records_line(ptxas(recs))
-              + f" [{card}]")
-    for r in recs:
-        r["peak_gib"] = peak
-    kernels_json += recs
-    del p, ds, out, pr, modes, fgp, fgm, fexpd, dblk, alb, Pm, gm_, recs
+    say("22", f"at L {L} x B {B} (stage 1) and {B} columns x {L} layers "
+              "(BVP): " + "; ".join(msgs) + f" ({STAGE1_TOL}, asserted "
+              f"bit-equal; {BVP_TOL}); {time.perf_counter() - t22:.1f} s "
+              f"into phase 22 [{card}]")
+
+    if refs is None:
+        refs = phase22_references(dev)
+        say("22", f"the float64 references took {refs['seconds']:.1f} s")
+    sweeps, off = refs["offdiag"]
+    say("22", f"K4's Jacobi at N = 64 (nstr 128) on 256 elements of the "
+              "aerosol path (2 layers x 128 columns), float32 by the plain "
+              f"operations: max |off-diagonal of Y^T K Y| / max |lam^2| "
+              f"{off:.2e} after its {sweeps} sweeps")
+    for key, p, want, stride, tag, label in huge_paths(dev):
+        kernels_json += stream_path("22", t22, card, clock_mhz, ptxas, label,
+                                    p, want, stride, tag, refs[key])
+        del p
     torch.cuda.empty_cache()
-    say("21", f"phase 21 took {time.perf_counter() - t21:.1f} s [{card}]")
+    kernels_json += radiance_path("22", dev, card, RADIANCE_HUGE, ptxas,
+                                  refs["radiances"], RADIANCE_HUGE_MODES)
+    say("22", f"phase 22 took {time.perf_counter() - t22:.1f} s [{card}]")
     return kernels_json
 
 
@@ -2025,10 +2397,18 @@ def main() -> None:
              f"PyYAML {yaml.__version__}")
 
     # ---- phase 1: build ----------------------------------------------------
-    lib = K.build()
+    # while nvcc compiles, the card runs what phases 22 and 21 need of the
+    # plain versions alone (their float64 references)
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(K.build)
+        refs22 = phase22_references(dev)
+        refs21 = path_references(dev, big_paths, RADIANCE_BIG)
+        lib = building.result()
     regs = ptxas_summary(lib.ptxas_log)
-    say("1", f"built {lib.path.name} in {lib.build_seconds:.1f} s; ptxas: "
-             + "; ".join(f"{k}: {v}" for k, v in regs.items()))
+    say("1", f"built {lib.path.name} in {lib.build_seconds:.1f} s (the "
+             "float64 references of phases 22 and 21 meanwhile, "
+             f"{refs22['seconds']:.1f} and {refs21['seconds']:.1f} s); "
+             "ptxas: " + "; ".join(f"{k}: {v}" for k, v in regs.items()))
     say("1", "the bodies of N = 9..16: K4 a team of 4 lanes per element, "
              "its Jacobi set in registers (stage1_general_wide<9..16>: "
              f"{regs.get('stage1_general_wide<9..16>')}); K2 a warp per "
@@ -2043,6 +2423,11 @@ def main() -> None:
              "columns): " + "; ".join(
                  f"{k} {v}" for k, v in regs.items()
                  if k.endswith(("<17..32>", "<17..24>", "<25..32>"))))
+    say("1", "the bodies of N = 33..64, N a run-time argument (K1 a warp per "
+             "element, two roots a lane; K4 a warp per element, two rows a "
+             "lane; K2 a block of 8 warps per column, its system in shared "
+             "memory; K5 32 warps over 32 columns): " + "; ".join(
+                 f"{k} {v}" for k, v in regs.items() if k.endswith("<33..64>")))
     say("1", "K2 at N = 5..7: one thread per column at N = 5, 6 ("
              + "; ".join(f"bvp_forward<{n}> {regs.get(f'bvp_forward<{n}>')}"
                          for n in (5, 6))
@@ -3038,7 +3423,10 @@ def main() -> None:
     kernels_json += phase20(dev, card, regs)
 
     # ---- phase 21: 34 to 64 streams -----------------------------------------
-    kernels_json += phase21(dev, card, regs)
+    kernels_json += phase21(dev, card, regs, refs21)
+
+    # ---- phase 22: 66 to 128 streams ----------------------------------------
+    kernels_json += phase22(dev, card, regs, refs22)
 
     print(card)
     print(json.dumps({"kernels": kernels_json}))

@@ -58,7 +58,8 @@ def kernel_flops(name: str, N: int, L: int, B: int, *, nmom: int = 0,
     """Float32 operations of one call, counted from the algorithm's terms
     (each add, multiply, divide, square root or compare one operation; the
     selects of pivoting and clamps not counted), so a lower bound of the
-    work the kernel does on these inputs."""
+    work the kernel does on these inputs; at any N (the kernels run N =
+    1..64), the sums over N terms, not the bodies' padded ones."""
     if name in ("stage1_isotropic", "stage1_isotropic_beam"):
         bis = 10 if N <= 4 else 12
         per = (N * (bis * (6 * N + 3) + 2 * (6 * N + 9))

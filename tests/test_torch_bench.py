@@ -197,7 +197,7 @@ def _kernel_calls(N, L, B):
     return calls
 
 
-@pytest.mark.parametrize("N", [1, 2, 4, 17, 32])
+@pytest.mark.parametrize("N", [1, 2, 4, 17, 32, 33])
 def test_kernel_bytes_is_the_tensor_count(N):
     L, B = 3, 5
     calls = _kernel_calls(N, L, B)
@@ -212,13 +212,15 @@ def test_kernel_bytes_is_the_tensor_count(N):
                                   "bvp_backward"])
 def test_kernel_flops_grow_with_n(name):
     """Per element the operations of the solves' kernels grow with N
-    through N = 32 (nstr 64, the bodies of ``csrc/*_big.cu``), and K4's 8
-    sweeps of N (N - 1) / 2 rotations lead its count there."""
-    kw = dict(nmom=64, sweeps=8) if name == "stage1_general" else {}
-    per = [R.kernel_flops(name, N, 1, 1, **kw) for N in range(16, 33)]
+    through N = 64 (nstr 128, the bodies of ``csrc/*_big.cu`` and
+    ``csrc/*_huge.cu``), and K4's 8 sweeps of N (N - 1) / 2 rotations lead
+    its count at N = 32 and 64."""
+    kw = dict(nmom=128, sweeps=8) if name == "stage1_general" else {}
+    per = [R.kernel_flops(name, N, 1, 1, **kw) for N in range(16, 65)]
     assert all(b > a > 0 for a, b in zip(per, per[1:]))
     if name == "stage1_general":
-        assert per[-1] > 8 * (32 * 31 // 2) * 6 * 32
+        for N in (32, 64):
+            assert per[N - 16] > 8 * (N * (N - 1) // 2) * 6 * N
 
 
 def test_bench_shape_bounds():

@@ -213,11 +213,15 @@ def test_k4_plain_at_every_mode_matches_jax_f64(nstr):
     ("cuda", "cuda", torch.float32, 32, "cuda"),     # nstr 64
     ("auto", "cuda", torch.float64, 32, "torch"),
     ("auto", "cpu", torch.float32, 32, "torch"),
+    *(("auto", "cuda", torch.float32, n, "cuda") for n in range(33, 65)),
+    ("cuda", "cuda", torch.float32, 64, "cuda"),     # nstr 128
+    ("auto", "cuda", torch.float64, 64, "torch"),
+    ("auto", "cpu", torch.float32, 64, "torch"),
 ])
 def test_route_is_a_function_of_device_dtype_and_n(kernel, device, dtype, N,
                                                    want):
     """``kernels.route``: the kernels for float32 CUDA tensors under
-    "auto" (every nstr up to 64 has a kernel), the plain versions
+    "auto" (every nstr up to 128 has a kernel), the plain versions
     otherwise, as the JAX package's ``_use_pallas``
     (``disort.py:311-319``); decided before any launch, from these three
     facts alone."""
@@ -229,13 +233,16 @@ def test_route_refuses_what_it_cannot_run():
         K.route("cuda", "cpu", torch.float32, 4)
     with pytest.raises(ValueError, match="kernel must be"):
         K.route("pallas", "cuda", torch.float32, 4)
-    # no kernel at nstr > 64: float32 on the card raises, it is not
+    # every nstr 66..128 has a kernel (the bodies of csrc/*_huge.cu)
+    assert all(K.route("auto", "cuda", torch.float32, n) == "cuda"
+               for n in range(33, 65))
+    # no kernel at nstr > 128: float32 on the card raises, it is not
     # handed to the plain versions
     for kernel in ("auto", "cuda"):
-        with pytest.raises(ValueError, match="no CUDA kernel for N = 33"):
-            K.route(kernel, "cuda", torch.float32, 33)
-    assert K.route("auto", "cuda", torch.float64, 33) == "torch"
-    assert K.route("auto", "cpu", torch.float32, 33) == "torch"
+        with pytest.raises(ValueError, match="no CUDA kernel for N = 65"):
+            K.route(kernel, "cuda", torch.float32, 65)
+    assert K.route("auto", "cuda", torch.float64, 65) == "torch"
+    assert K.route("auto", "cpu", torch.float32, 65) == "torch"
     ds = Disort(DisortOptions(kernel="cuda", nstr=4))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ds._kernels(torch.device("cpu"), torch.float32)

@@ -9,16 +9,17 @@ from its pole, ``tests/wide_secular_report.py`` prints it).  The port's K1
 at N > 8 is held here:
 
 * against its own float64 plain version, at every N = 9..16 and at N =
-  17, 24, 32, on
+  17, 24, 32, 33, 48, 64, on
   ``test_torch_kernels._stage1_inputs(6, 64, seed 0)`` (ssa = 0 and
   0.999999 entries included): finite, gp and gm within 2e-4 of their max,
-  lam within 2e-6 relative everywhere but the ssa = 0.999999 element,
+  lam within 2e-6 relative (N 2^-24 above N = 32, 3.8e-6 at N = 64)
+  everywhere but the ssa = 0.999999 element,
   where float32's rounding of ssa alone moves the smallest root by ~1%
   (the bounds the fixed schedule meets at nstr 16 on the same inputs);
   the beam variant's particular against float64 run with float32's
   resonance floor, 1e-4 of max|ref| on the columns with no layer within
   1e-3 of a beam resonance and 1e-3 on the others (``chip_smoke.py``'s
-  rule);
+  rule; above N = 32 scaled as lam's bound, 1.9e-3 at N = 64);
 * against the JAX Pallas K1 in interpret mode at nstr 18 and 20, where the
   fixed schedule is still finite, as ``tests/test_torch_kernels.py`` holds
   nstr 4 and 8: 3e-5 of max|ref| away from ssa = 0.999999, and at that
@@ -60,12 +61,14 @@ def _plain_beam(ins, fbeam, mur, nstr, dtype):
                                    make_static_angles(nstr, nstr, 0))
 
 
-# and the bodies of N = 17..32 (csrc/stage1_isotropic_big.cu), whose plain
-# version is the same
+# and the bodies of N = 17..32 (csrc/stage1_isotropic_big.cu) and of
+# N = 33..64 (csrc/stage1_isotropic_huge.cu), whose plain version is the
+# same
 NSTR_BIG = (34, 48, 64)
+NSTR_HUGE = (66, 96, 128)
 
 
-@pytest.mark.parametrize("nstr", NSTR_WIDE + NSTR_BIG)
+@pytest.mark.parametrize("nstr", NSTR_WIDE + NSTR_BIG + NSTR_HUGE)
 def test_wide_k1_float32_is_near_float64(nstr):
     ins = _stage1_inputs(6, 64, seed=0)
     fbeam, mur = _beam_inputs(64, 6)
@@ -87,7 +90,11 @@ def test_wide_k1_float32_is_near_float64(nstr):
         err = (got[i].double() - want[i]).abs().max() / want[i].abs().max()
         assert err <= 2e-4, (NAMES[i], float(err))
     rel = ((got[2].double() - want[2]).abs() / want[2]).numpy()
-    assert rel[:, ~edge].max() <= 2e-6, rel[:, ~edge].max()
+    # 2e-6 up to N = 32; above, N float32 half-ulps (the secular sums' N
+    # terms, each rounded): at nstr 128 the smallest root of ssa 0.93-0.95
+    # reads 2.5-2.7e-6 from float64 with float32-rounded inputs too
+    tol = max(2e-6, nstr // 2 * 2.0 ** -24)
+    assert rel[:, ~edge].max() <= tol, rel[:, ~edge].max()
     lam2 = want[2] ** 2
     inv = 1.0 / torch.tensor(mur) ** 2
     near = (((lam2 - inv).abs() / (lam2 + inv)) < 1e-3).any(dim=0)
@@ -95,7 +102,10 @@ def test_wide_k1_float32_is_near_float64(nstr):
         w = want_floor[i]
         err = (got[i].double() - w).abs() / w.abs().max()
         assert err[..., ~near].max() <= 1e-4, (NAMES[i], float(err.max()))
-        assert err.max() <= 1e-3, (NAMES[i], float(err.max()))
+        # near a resonance the clamped denominator magnifies the roots'
+        # error, so that bound grows with the roots' (zp 1.26e-3 at nstr
+        # 128)
+        assert err.max() <= 1e-3 * tol / 2e-6, (NAMES[i], float(err.max()))
 
 
 def _exact_lam(ssa, ang):

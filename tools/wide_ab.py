@@ -1,7 +1,7 @@
 """Time K1, K4 and K2 at N = 16 (nstr 32), K5 at N = 9..16, K2 at N = 5..7,
-K1, K4 and K2 at N = 17..32, the solve steps they run in, and the plain LU
-against another tree's, in turns, on the card; K1's, K4's and K2's cycles
-by phase at N = 17..32.
+K1, K4 and K2 at N = 17..32, K1, K4, K2 and K5 at N = 33..64, the solve
+steps they run in, and the plain LU against another tree's, in turns, on
+the card; K1's, K4's and K2's cycles by phase at N = 17..32.
 
     git archive <commit> pyharp_tpu_torch/rt/disort | tar -x -C _checkout/parent
     python3 tools/wide_ab.py --parent _checkout/parent
@@ -58,6 +58,13 @@ times the tool against itself.  Each part times its calls over
   the occupancy calculator, go beside the times; first, K4's square root
   without a range check against ``sqrtf`` on every float32 in [1, 2^60]
   (``kernels.root_check``).
+- ``huge``, as ``big`` at N = 33..64 (only ``HUGE_SOURCES`` built), on
+  the full-width inputs of ``chip_smoke.py`` phase 22 at nstr 128:
+  aerosol_16str_beam's configuration (its first 25 waves x 128 x 40), the
+  isotropic thermal (8 x 512 x 20) and beam (the first 125 of 500 waves x
+  64 x 20) solves and the radiances (2 x 16 x 10), K5 beside K2 on each;
+  where the parent has no bodies of N = 33..64, this tree's library is
+  timed against itself in turns.
 - ``big_cycles``: K1, K4 and K2 at N = 17..32 of this tree and of the
   parent (where its sources carry the marks) built with
   ``PYHARP_BIG_PROFILE``, once each on the aerosol inputs at nstr 64 and
@@ -87,12 +94,14 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 DISORT = Path("pyharp_tpu_torch/rt/disort")
-PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu", "big", "big_cycles")
+PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu", "big", "big_cycles",
+         "huge")
 # the parts that time the whole libraries (the others build the bodies of
-# N = 17..32 alone)
+# N = 17..32 or 33..64 alone)
 FULL_PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu")
 BIG_SOURCES = ("stage1_isotropic_big.cu", "stage1_general_big.cu",
                "bvp_forward_big.cu", "bvp_backward_big.cu")
+HUGE_SOURCES = tuple(s.replace("_big", "_huge") for s in BIG_SOURCES)
 # the phases of BIG_PROF_MARK in the two bodies
 K4_PHASES = ("moments, contractions and Cholesky", "K = Lc^T Vhat Lc",
              "sweeps", "D and the eigenvectors", "beam particular",
@@ -142,9 +151,12 @@ def big_k1_call(p):
     return lambda: K.stage1_isotropic_beam(*s1, pr["fbeam"], mur, ds._ang0)
 
 
-# K1's timings of ``big``, on the isotropic paths: (key, path)
+# K1's timings of ``big`` and ``huge``, on the isotropic paths: (key, path)
 BIG_K1 = (("big_k1_thermal_8x2048x20_nstr64", "iso_thermal_8x2048x20_nstr64"),
           ("big_k1_beam_500x64x20_nstr64", "iso_beam_500x64x20_nstr64"))
+HUGE_K1 = (("huge_k1_thermal_8x512x20_nstr128",
+            "iso_thermal_8x512x20_nstr128"),
+           ("huge_k1_beam_125x64x20_nstr128", "iso_beam_125x64x20_nstr128"))
 
 
 def big_inputs(what: str, dev):
@@ -167,19 +179,33 @@ def big_inputs(what: str, dev):
     if what == "iso_beam_500x64x20_nstr64":
         return extra_problem(500, 64, 20, 64, beam=True, device=dev,
                              kernel="cuda"), False, False
-    assert what == "radiances_8x64x20_nstr64", what
+    if what == "radiances_8x64x20_nstr64":
+        return radiance_problem(torch.float32, dev, "cuda",
+                                shape=(8, 64, 20, 64)), True, True
+    if what == "aerosol_25x128x40_nstr128":
+        return extra_problem(500, 128, 40, 128, g=0.8, device=dev,
+                             kernel="cuda", first=25), True, False
+    if what == "iso_thermal_8x512x20_nstr128":
+        return bench_problem(8, 512, 20, 128, torch.float32, dev,
+                             "cuda"), False, False
+    if what == "iso_beam_125x64x20_nstr128":
+        return extra_problem(500, 64, 20, 128, beam=True, device=dev,
+                             kernel="cuda", first=125), False, False
+    assert what == "radiances_2x16x10_nstr128", what
     return radiance_problem(torch.float32, dev, "cuda",
-                            shape=(8, 64, 20, 64)), True, True
+                            shape=(2, 16, 10, 128)), True, True
 
 
 BIG_PATHS = ("aerosol_100x128x40_nstr64", "aerosol_200x128x40_nstr48",
              "iso_thermal_8x2048x20_nstr64", "iso_beam_500x64x20_nstr64",
              "radiances_8x64x20_nstr64")
+HUGE_PATHS = ("aerosol_25x128x40_nstr128", "iso_thermal_8x512x20_nstr128",
+              "iso_beam_125x64x20_nstr128", "radiances_2x16x10_nstr128")
 
 
 def big_calls(p, k4: bool, radiances: bool):
-    """K4's and K2's calls on a path's inputs, as the path launches them:
-    ``(k4_fn or None, k2_fn, N)``."""
+    """K4's, K2's and K5's calls on a path's inputs, as the path launches
+    them: ``(k4_fn or None, k2_fn, k5_fn, N)``."""
     from chip_smoke import radiance_k4
     from pyharp_tpu_torch.rt.disort import kernels as K
 
@@ -189,7 +215,9 @@ def big_calls(p, k4: bool, radiances: bool):
         modes = ds._modes_batched(pr)
         fold = modes["fold"]
         k4_fn = radiance_k4(ds, pr, modes)[0]
-        return k4_fn, lambda: K.bvp_forward(*fold, ds._ang0), modes["N"]
+        P, g = K.bvp_forward(*fold, ds._ang0)
+        return (k4_fn, lambda: K.bvp_forward(*fold, ds._ang0),
+                lambda: K.bvp_backward(*fold[:3], P, g, ds._ang0), modes["N"])
     pr = ds._prepare(*p.args)
     md = ds._solve_mode(pr)
     sol, ang = md["sol"], ds._ang0
@@ -200,11 +228,14 @@ def big_calls(p, k4: bool, radiances: bool):
             pr["slope"], ang, thermal=thermal, fbeam=pr["fbeam"],
             mur=md["mur"], lam0=md["lam0"])
     a2 = (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ang)
-    return k4_fn, lambda: K.bvp_forward(*a2), sol.gp.shape[0]
+    a5 = (sol.gp, sol.gm, sol.expd, md["P"], md["g"], ang)
+    return (k4_fn, lambda: K.bvp_forward(*a2), lambda: K.bvp_backward(*a5),
+            sol.gp.shape[0])
 
 
-def big_part(args, res, libs, timed, lib_setups, lib_turns, dev) -> None:
-    """The part ``big`` (module docstring)."""
+def big_part(args, res, libs, timed, lib_setups, lib_turns, dev,
+             kind: str = "big") -> None:
+    """The part ``big`` or ``huge`` (module docstring)."""
     import torch
 
     from chip_smoke import bvp_check
@@ -213,7 +244,9 @@ def big_part(args, res, libs, timed, lib_setups, lib_turns, dev) -> None:
     def use(name):
         K._library = libs[name]
 
-    for key, what in BIG_K1:
+    k1s, paths = (BIG_K1, BIG_PATHS) if kind == "big" else (HUGE_K1,
+                                                             HUGE_PATHS)
+    for key, what in k1s:
         use("new")
         p = big_inputs(what, dev)[0]
         k1_fn = big_k1_call(p)
@@ -226,19 +259,20 @@ def big_part(args, res, libs, timed, lib_setups, lib_turns, dev) -> None:
         beam = "beam" in key
         for who, lb in libs.items():
             res[f"{key}_{who}_per_sm"] = occupancy(
-                lb, "stage1_isotropic_big", int(beam))
+                lb, f"stage1_isotropic_{kind}", int(beam))
         print(f"{key}: elements per SM {res[f'{key}_new_per_sm']} (new), "
               f"{res[f'{key}_parent_per_sm']} (parent)", flush=True)
         del p, k1_fn
         torch.cuda.empty_cache()
     use("new")
-    res["big_root_check_bad"] = K.root_check()
-    print(f"K4's root against sqrtf on [1, 2^60]: "
-          f"{res['big_root_check_bad']} differ", flush=True)
-    for what in BIG_PATHS:
+    if kind == "big":
+        res["big_root_check_bad"] = K.root_check()
+        print(f"K4's root against sqrtf on [1, 2^60]: "
+              f"{res['big_root_check_bad']} differ", flush=True)
+    for what in paths:
         use("new")
         p, k4, radiances = big_inputs(what, dev)
-        k4_fn, k2_fn, N = big_calls(p, k4, radiances)
+        k4_fn, k2_fn, k5_fn, N = big_calls(p, k4, radiances)
         if k4_fn is not None:
             ref = k4_fn()
             use("parent")
@@ -246,21 +280,30 @@ def big_part(args, res, libs, timed, lib_setups, lib_turns, dev) -> None:
             assert all(torch.equal(a, b) for a, b in zip(got, ref)), (
                 f"K4 of the parent differs from this tree's on {what}")
             del got, ref
-            timed(f"big_k4_{what}", k4_fn, lib_setups, lib_turns, args.reps)
+            timed(f"{kind}_k4_{what}", k4_fn, lib_setups, lib_turns,
+                  args.reps)
         use("new")
         ref = k2_fn()
         use("parent")
-        res[f"big_k2_{what}_max_rel_err"] = bvp_check(
+        res[f"{kind}_k2_{what}_max_rel_err"] = bvp_check(
             k2_fn(), ref, f"K2 of the parent on {what}")
         del ref
-        timed(f"big_k2_{what}", k2_fn, lib_setups, lib_turns, args.reps)
+        timed(f"{kind}_k2_{what}", k2_fn, lib_setups, lib_turns, args.reps)
+        if kind == "huge":
+            use("new")
+            ref = k5_fn()
+            use("parent")
+            res[f"huge_k5_{what}_max_rel_err"] = bvp_check(
+                k5_fn(), ref, f"K5 of the parent on {what}")
+            del ref
+            timed(f"huge_k5_{what}", k5_fn, lib_setups, lib_turns, args.reps)
         for who, lb in libs.items():
-            res[f"big_{what}_{who}_per_sm"] = {
-                "k4_elements": occupancy(lb, "stage1_general_big", N),
-                "k2_columns": occupancy(lb, "bvp_forward_big", N)}
-        print(f"{what}: per SM {res[f'big_{what}_new_per_sm']} (new), "
-              f"{res[f'big_{what}_parent_per_sm']} (parent)", flush=True)
-        del p, k4_fn, k2_fn
+            res[f"{kind}_{what}_{who}_per_sm"] = {
+                "k4_elements": occupancy(lb, f"stage1_general_{kind}", N),
+                "k2_columns": occupancy(lb, f"bvp_forward_{kind}", N)}
+        print(f"{what}: per SM {res[f'{kind}_{what}_new_per_sm']} (new), "
+              f"{res[f'{kind}_{what}_parent_per_sm']} (parent)", flush=True)
+        del p, k4_fn, k2_fn, k5_fn
         torch.cuda.empty_cache()
     use("new")
 
@@ -304,7 +347,7 @@ def big_cycles(res, who: str, lib, dev, card: str) -> None:
                           ("aerosol_200x128x40_nstr48", False),
                           ("iso_thermal_8x2048x20_nstr64", True)):
         p, k4, radiances = big_inputs(what, dev)
-        k4_fn, k2_fn, N = big_calls(p, k4, radiances)
+        k4_fn, k2_fn, _, N = big_calls(p, k4, radiances)
         if not k2_only:
             for thermal in (False, True):
                 key = (f"{who}_cycles_k4_{what}"
@@ -360,6 +403,11 @@ def main() -> None:
     if "big" in parts:
         jobs["new_big"] = (K.CSRC, ab / "new_big", BIG_SOURCES, ())
         jobs["parent_big"] = (pcsrc, ab / "parent_big", BIG_SOURCES, ())
+    if "huge" in parts:
+        jobs["new_huge"] = (K.CSRC, ab / "new_huge", HUGE_SOURCES, ())
+        if (pcsrc / HUGE_SOURCES[0]).exists():
+            jobs["parent_huge"] = (pcsrc, ab / "parent_huge", HUGE_SOURCES,
+                                   ())
     if "big_cycles" in parts:
         jobs["profile"] = (K.CSRC, ab / "profile", BIG_SOURCES,
                            ("PYHARP_BIG_PROFILE",))
@@ -371,7 +419,8 @@ def main() -> None:
     regs = {f"{who}:{k}": v
             for who, lb in built.items()
             for k, v in ptxas_summary(lb.ptxas_log).items()
-            if "wide" in k or "big" in k or k.startswith("bvp_backward")
+            if "wide" in k or "big" in k or "huge" in k
+            or k.startswith("bvp_backward")
             or k in ("bvp_forward<5>", "bvp_forward<6>", "bvp_forward<7>",
                      "bvp_forward_half<7>")}
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s; "
@@ -640,6 +689,11 @@ def main() -> None:
     if "big" in parts:
         libs = {"new": built["new_big"], "parent": built["parent_big"]}
         big_part(args, res, libs, timed, lib_setups, lib_turns, dev)
+    if "huge" in parts:
+        libs = {"new": built["new_huge"],
+                "parent": built.get("parent_huge", built["new_huge"])}
+        res["huge_parent_has_bodies"] = "parent_huge" in built
+        big_part(args, res, libs, timed, lib_setups, lib_turns, dev, "huge")
     if "big_cycles" in parts:
         for who in ("parent", "new"):
             lb = built["profile" if who == "new" else "parent_profile"]
