@@ -8,7 +8,7 @@ The paths run through the hand-written CUDA kernels of
 ``Disort.forward``: the isotropic thermal problem of ``bench.py`` (8
 g-points x 8192 columns x 100 layers, 8 streams) and amars_lw (kernels K1,
 K2, K3); the 16-stream aerosol problem with a beam of ``bench_extra.py``
-(500 x 128 x 40, K4, K2, K5), and the same at 32, 48, 64 and 128 streams; its 4-stream line-by-line beam problem (500 x
+(500 x 128 x 40, K4, K2, K5), and the same at 32, 48, 64, 128 and 256 streams; its 4-stream line-by-line beam problem (500 x
 512 x 40, K1's beam variant, K2, K3); amars_sw (K1 beam, K2, K3); the YAML
 ``Radiation`` layer.  The radiances of ``Disort.intensities``: every
 azimuthal mode of ``bench_extra.py``'s radiance problem (32 x 512 x 40,
@@ -219,8 +219,8 @@ or more:
     column's max|uu| away from a resonance);
 22. 66 to 128 streams: the bodies of N = 33..64 (``csrc/*_huge.cu``), their
     ptxas lines and elements (columns) an SM; ``kernels.route`` sends
-    float32 CUDA tensors at every nstr 2..128 to the kernels, and nstr 130
-    raises before any launch; at nstr 66, 82, 96, 128 (N = 33, 41, 48,
+    float32 CUDA tensors at every nstr 2..128 to the kernels; at nstr 66,
+    82, 96, 128 (N = 33, 41, 48,
     64), K1 and its beam variant and K4 (m = 0 with a thermal source and a
     beam, m = 1 with a beam, at nstr 128 also m = 63) bit-equal to their
     plain versions on L 3 x B 99 elements (asserted), K2 and K5 on 99
@@ -231,7 +231,26 @@ or more:
     isotropic thermal solve (8 x 256 x 20; K1, K2, K5), the isotropic
     beam (the first 25 of 500 waves x 64 x 20; K1 beam, K2, K5; float64 on
     every 5th wave) and ``Disort.intensities`` (1 x 16 x 8: K4 128 times,
-    K2 and K5 twice).
+    K2 and K5 twice);
+23. beyond 128 streams: the bodies of N > 64 (``csrc/*_global.cu``, any N,
+    their matrices in global scratch), their ptxas lines, elements
+    (columns) an SM and the scratch a resident block keeps at N = 128;
+    ``kernels.route`` sends float32 CUDA tensors at nstr 130, 256 and 1000
+    to the kernels, decided before any launch; at nstr 130, 200, 256, 258
+    (N = 65, 100, 128, 129: 3, 4, 4 and 5 sets of 32 rows), K1 and its
+    beam variant, K4 (m = 0 with a thermal source and a beam, m = 1 with
+    a beam; the plain version of both modes in one pass) and K2 bit-equal
+    to their plain versions on L 3 x B 37 elements (asserted; K2 built
+    without multiply-add contraction there), K2 and K5 on 37 columns x 3
+    layers to phase 3's bound; the off-diagonal K4's 8 Jacobi sweeps leave
+    at N = 128; then through ``kernel="auto"`` at nstr 256 as phase 22:
+    aerosol_16str_beam's configuration (its first wave x 128 columns x
+    its first 10 layers, ``AEROSOL_GLOBAL``; K4, K2, K5), the isotropic
+    thermal solve (1 x 63 x 11; K1, K2, K5), the isotropic beam (the first
+    3 of 500 waves x 21 x 11; K1 beam, K2, K5) and ``Disort.intensities``
+    (1 x 4 x 4: K4 256 times, held bit-equal at m = 0 and
+    ``RADIANCE_GLOBAL_MODES``, K2 and K5 twice); the float64 references
+    run on the card while ``nvcc`` builds, as phases 21 and 22's.
 
 The problems, the roofline counts and the card's peaks come from
 ``pyharp_tpu_torch.bench`` (``problems``, ``roofline_run``, ``profile``).
@@ -295,6 +314,17 @@ HUGE_PTXAS = {
     "stage1_general": "stage1_general_huge<33..64>",
     "bvp_forward": "bvp_forward_huge<33..64>",
     "bvp_backward": "bvp_backward_huge<33..64>",
+}
+# the sources of the bodies at N > 64 (kernels.HUGE_MAX_N < N), and the
+# name of each body in ptxas_summary
+GLOBAL_SOURCES = {k: v.replace("_big.cu", "_global.cu")
+                  for k, v in BIG_SOURCES.items()}
+GLOBAL_PTXAS = {
+    "stage1_isotropic": "stage1_isotropic_global<65..>",
+    "stage1_isotropic_beam": "stage1_isotropic_global_beam<65..>",
+    "stage1_general": "stage1_general_global<65..>",
+    "bvp_forward": "bvp_forward_global<65..>",
+    "bvp_backward": "bvp_backward_global<65..>",
 }
 AMARS_SW_TOA = 408.17
 
@@ -410,6 +440,9 @@ def ptxas_summary(log: str) -> dict[str, str]:
             huge = re.search(r"(stage1_isotropic|stage1_general|bvp_forward|"
                              r"bvp_backward)_huge_kernel(ILb([01])E)?",
                              m.group(1))
+            glob = re.search(r"(stage1_isotropic|stage1_general|bvp_forward|"
+                             r"bvp_backward)_global_kernel(ILb([01])E)?",
+                             m.group(1))
             cur = None
             if k:
                 # the second template argument: K1's beam flag, K6's mode,
@@ -432,6 +465,15 @@ def ptxas_summary(log: str) -> dict[str, str]:
             elif huge:
                 beam = "_beam" if huge.group(3) == "1" else ""
                 cur = f"{huge.group(1)}_huge{beam}<33..64>"
+            elif glob:
+                # K1's beam flag; K5's: its tile in shared memory (1) or
+                # in global scratch (0, past N = 591 on the H100)
+                flag = glob.group(3)
+                suffix = ("" if flag is None else
+                          {"0": "_scratch", "1": ""}[flag]
+                          if glob.group(1) == "bvp_backward" else
+                          {"0": "", "1": "_beam"}[flag])
+                cur = f"{glob.group(1)}_global{suffix}<65..>"
             continue
         if cur is None:
             continue
@@ -507,7 +549,9 @@ def kernel_record(name, path, launches, fn, plain, args, kw, check, tol,
     src, tpu = KERNEL_TABLE[name]
     N = next(t for t in (*args, *got) if isinstance(t, torch.Tensor)
              and t.dim() == 4).shape[1]
-    if N > K.BIG_MAX_N:
+    if N > K.HUGE_MAX_N:
+        src = GLOBAL_SOURCES[name]
+    elif N > K.BIG_MAX_N:
         src = HUGE_SOURCES[name]
     elif N > K.WIDE_MAX_N:
         src = BIG_SOURCES[name]
@@ -1110,15 +1154,16 @@ def beam_records(path, launches, pr, md, ang, near=None,
             kernel_flops("bvp_backward", N, L, B), near=near, once=once))
     return recs
 
-def radiance_k4(ds, pr, modes, check=None):
+def radiance_k4(ds, pr, modes, check=None, launch_all=True):
     """K4 at every mode of a radiance solve (no thermal source) as the path
     launches it, m = 0 then the modes m >= 1 with their zero thermal
-    inputs, and its plain version: m = 0, then the modes m >= 1 in one pass
+    inputs, and its plain version: every mode in one pass
     (``kernels.stage1_general_modes_plain``, the bits of a call per mode).
     Returns ``(kernel, plain, lam00)``, the first two taking no arguments
     and giving every mode's outputs in one tuple; with ``check``, a set of
     modes m >= 1, only m = 0's and theirs (the kernel still launched at
-    every mode, the plain version run at those alone)."""
+    every mode unless ``launch_all`` is false, the plain version run at
+    those alone)."""
     import torch
 
     from pyharp_tpu_torch.rt.disort import kernels as K
@@ -1136,6 +1181,8 @@ def radiance_k4(ds, pr, modes, check=None):
         outs = K.stage1_general(*s4, pr["b_top_lay"], pr["slope"], ang0,
                                 thermal=False, lam0=lam00, **b4)
         for i, (a, l0) in enumerate(zip(angs, modes["lam0"])):
+            if not launch_all and i not in keep:
+                continue
             o = K.stage1_general(*s4, zero, zero, a, thermal=False, lam0=l0,
                                  **b4)
             if i in keep:
@@ -1143,11 +1190,10 @@ def radiance_k4(ds, pr, modes, check=None):
         return outs
 
     def plain():
-        outs = K.stage1_general_plain(*s4, pr["b_top_lay"], pr["slope"],
-                                      ang0, thermal=False, lam0=lam00, **b4)
+        outs = ()
         for o in K.stage1_general_modes_plain(
-                *s4, [angs[i] for i in keep],
-                lam0s=[modes["lam0"][i] for i in keep], **b4):
+                *s4, [ang0] + [angs[i] for i in keep],
+                lam0s=[lam00] + [modes["lam0"][i] for i in keep], **b4):
             outs += o
         return outs
 
@@ -1825,7 +1871,7 @@ def stream_path(phase, t0, card, clock_mhz, ptxas, label, p, want, stride,
 
 
 def radiance_path(phase, dev, card, shape, ptxas, reference=None,
-                  k4_modes=None) -> list:
+                  k4_modes=None, light=False) -> list:
     """The radiances of ``radiance_problem`` at ``shape`` (nwave, ncol,
     nlyr, nstr) through ``kernel="auto"``: K4 once per mode (nstr), K2 and
     K5 twice; float64 on every 10th wave with float32's resonance floor (on
@@ -1835,7 +1881,10 @@ def radiance_path(phase, dev, card, shape, ptxas, reference=None,
     that floor, where computed earlier); each kernel against its plain
     version on the path's inputs, K4 bit-equal at every mode (at m = 0 and
     the modes ``k4_modes`` where given, every mode timed) (phases 21, 22).
-    Returns the kernels' entries."""
+    ``light`` (phase 23, where K4 takes ~0.3 s a launch): the step is the
+    counted call's time, and K4 is launched and timed at m = 0 and
+    ``k4_modes`` alone after the counted call.  Returns the kernels'
+    entries."""
     import torch
 
     from pyharp_tpu_torch.bench.problems import radiance_problem
@@ -1847,7 +1896,11 @@ def radiance_path(phase, dev, card, shape, ptxas, reference=None,
     p = radiance_problem(torch.float32, dev, "auto", shape=shape)
     ds = p.disort
     K.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
     out = ds.intensities(p.prop, p.bc)
+    stop.record()
     torch.cuda.synchronize()
     launches = K.launch_counts()
     expect_launches(launches, stage1_general=nstr, bvp_forward=2,
@@ -1863,27 +1916,32 @@ def radiance_path(phase, dev, card, shape, ptxas, reference=None,
     res = radiance_errors(sub, ref_f, ref_f, near)
     del ds64, args64, ref_f, sub
     torch.cuda.empty_cache()
-    ms_step = cuda_ms(lambda: ds.intensities(p.prop, p.bc)["uu"], 2)
+    ms_step = (start.elapsed_time(stop) if light else
+               cuda_ms(lambda: ds.intensities(p.prop, p.bc)["uu"], 2))
     pr = ds._prepare(p.prop, p.bc, None)
     modes = ds._modes_batched(pr)
     fgp, fgm, fexpd, dblk, alb = modes["fold"]
     L, B, N, nm = pr["L"], pr["B"], modes["N"], len(modes["ms"])
     tag = f"radiances {'x'.join(map(str, shape[:3]))} nstr {nstr}"
     ang0 = ds._ang0
-    k4_kernel, k4_plain, lam00 = radiance_k4(ds, pr, modes, k4_modes)
+    k4_kernel, k4_plain, lam00 = radiance_k4(ds, pr, modes, k4_modes,
+                                             launch_all=not light)
+    # the modes K4's time covers, and with them its bound
+    timed = len(k4_modes) + 1 if light else nm + 1
     nmom = pr["pmom_s"].shape[1]
     held = ("" if k4_modes is None else
-            " (held at m = " + ", ".join(map(str, (0, *sorted(k4_modes))))
-            + ")")
+            (" (launched, held and timed at m = " if light else
+             " (held at m = ")
+            + ", ".join(map(str, (0, *sorted(k4_modes)))) + ")")
     recs = [kernel_record(
         "stage1_general", tag + f", modes 0..{nm}" + held,
         launches["stage1_general"],
         k4_kernel, k4_plain, (), {}, stage1_exact, STAGE1_TOL,
-        (nm + 1) * kernel_flops("stage1_general", N, L, B, nmom=nmom,
-                                sweeps=K.kernel_sweeps(N), thermal=False,
-                                beam=True),
+        timed * kernel_flops("stage1_general", N, L, B, nmom=nmom,
+                             sweeps=K.kernel_sweeps(N), thermal=False,
+                             beam=True),
         reads=[pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["fbeam"],
-               modes["mur"]] * (nm + 1) + [lam00, modes["lam0"]], once=True)]
+               modes["mur"]] * timed + [lam00, modes["lam0"]], once=True)]
     recs[0]["bit_equal"] = True
     if k4_modes is not None:           # its plain_ms times those modes
         recs[0]["plain_modes"] = len(k4_modes) + 1
@@ -2235,7 +2293,7 @@ def phase22(dev, card: str, regs: dict, refs: dict | None = None) -> list:
     ``refs``: :func:`phase22_references`, computed earlier (else here)."""
     import torch
 
-    from pyharp_tpu_torch.bench.problems import extra_problem, stage1_inputs
+    from pyharp_tpu_torch.bench.problems import stage1_inputs
     from pyharp_tpu_torch.rt.disort import kernels as K
     from pyharp_tpu_torch.rt.disort.legendre import lepoly
     from pyharp_tpu_torch.rt.disort.solver import make_static_angles
@@ -2264,21 +2322,11 @@ def phase22(dev, card: str, regs: dict, refs: dict | None = None) -> list:
             r["ptxas"] = huge[r["name"]]
         return recs
 
-    # the route: every nstr 2..128 in float32 on the card to the kernels,
-    # 130 raises before any launch
+    # the route: every nstr 2..128 in float32 on the card to the kernels
+    # (and above, phase 23)
     assert all(K.route("auto", "cuda", torch.float32, n) == "cuda"
                for n in range(1, 65))
-    p = extra_problem(2, 8, 4, 130, g=0.8, device=dev, kernel="auto")
-    K.reset_launches()
-    try:
-        p.disort.forward(p.prop, p.bc)
-        raise AssertionError("nstr 130 in float32 on the card did not raise")
-    except ValueError as exc:
-        assert "no CUDA kernel for N = 65" in str(exc), exc
-    assert not any(K.launch_counts().values()), K.launch_counts()
-    del p
-    say("22", "route: float32 CUDA tensors at nstr 2..128 -> 'cuda'; nstr "
-              "130 raises before any launch")
+    say("22", "route: float32 CUDA tensors at nstr 2..128 -> 'cuda'")
 
     # each body against its plain version on HUGE_CHECK_SHAPE's elements:
     # K1 beam, and K1 against the beam variant's plain eigenstructure (the
@@ -2365,6 +2413,245 @@ def phase22(dev, card: str, regs: dict, refs: dict | None = None) -> list:
     return kernels_json
 
 
+# ---- beyond 128 streams (phase 23) -----------------------------------------
+
+# the stream counts phase 23 holds the bodies of N > 64 at, each to its
+# plain version: N = 65, 100, 128, 129, whose N (and 2N) rows fill 3, 4,
+# 4 and 5 sets of 32 (the last partial, partial, full and partial)
+NSTR_GLOBAL = (130, 200, 256, 258)
+# (L, B) of those checks: L B = 111, no multiple of K1's 8 or K4's 2
+# elements a block, B no multiple of K5's tile of 32; K2 and K5 on its B
+# columns x L layers
+GLOBAL_CHECK_SHAPE = (3, 37)
+# the stream counts whose route phase 23 asserts
+NSTR_ROUTE = (130, 256, 1000)
+# the paths at nstr 256 through kernel="auto", cut for time as phase 22's
+# (the plain versions that check every column are launch-bound: at
+# N = 128 the plain K4's Jacobi alone is 2.3e6 tensor operations a call):
+# aerosol_16str_beam's configuration, the first AEROSOL_GLOBAL[1] of its
+# 500 waves and its first AEROSOL_GLOBAL[2] of 40 layers (128 columns; a
+# float64 pass over 40 layers takes ~50 s there, and most columns lie near
+# a resonance, which takes a second); the isotropic thermal solve (waves,
+# columns, layers) and the isotropic beam solve (its first waves of 500,
+# columns, layers), each with an odd L B; the radiances (waves, columns,
+# layers, nstr), K4 held at m = 0 and RADIANCE_GLOBAL_MODES (every mode
+# timed)
+AEROSOL_GLOBAL = (256, 1, 10)
+THERMAL_GLOBAL = (1, 63, 11)
+BEAM_GLOBAL = (3, 21, 11)
+RADIANCE_GLOBAL = (1, 4, 4, 256)
+RADIANCE_GLOBAL_MODES = (1, 2, 127, 128, 254, 255)
+
+
+def global_paths(dev):
+    """Phase 23's solves at nstr 256: ``(key, problem, launches, stride,
+    tag, label)`` each, the problem built from its seed."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import bench_problem, extra_problem
+
+    nstr, nw, nl = AEROSOL_GLOBAL
+    yield ("aerosol",
+           extra_problem(500, 128, nl, nstr, g=0.8, device=dev,
+                         kernel="auto", first=nw),
+           dict(stage1_general=1, bvp_forward=1, bvp_backward=1), 1,
+           f"aerosol {nw}x128x{nl} nstr {nstr}",
+           f"aerosol_16str_beam's configuration {nw}x128x{nl} (the first "
+           f"{nw} of its 500 waves, {nl} of its 40 layers) at nstr {nstr}, "
+           "HG g 0.8")
+    nwave, ncol, nlyr = THERMAL_GLOBAL
+    shape = f"{nwave}x{ncol}x{nlyr}"
+    yield ("thermal",
+           bench_problem(nwave, ncol, nlyr, nstr, torch.float32, dev, "auto"),
+           dict(stage1_isotropic=1, bvp_forward=1, bvp_backward=1), 1,
+           f"bench {shape} nstr {nstr}", f"isotropic thermal {shape} nstr {nstr}")
+    nwave, ncol, nlyr = BEAM_GLOBAL
+    shape = f"{nwave}x{ncol}x{nlyr}"
+    yield ("beam",
+           extra_problem(500, ncol, nlyr, nstr, beam=True, device=dev,
+                         kernel="auto", first=nwave),
+           dict(stage1_isotropic_beam=1, bvp_forward=1, bvp_backward=1), 1,
+           f"isotropic beam {shape} nstr {nstr}",
+           f"isotropic beam {shape} (the first {nwave} of 500 waves) "
+           f"nstr {nstr}")
+
+
+def phase23_references(dev) -> dict:
+    """What phase 23 needs of the plain versions alone, computed before the
+    kernels are built: :func:`path_references` of :func:`global_paths` and
+    ``RADIANCE_GLOBAL``, and the off-diagonal K4's sweeps leave at N = 128
+    (:func:`jacobi_offdiag`, on the first layer x 128 columns of the
+    aerosol path)."""
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    t0 = time.perf_counter()
+    refs = path_references(dev, global_paths, RADIANCE_GLOBAL)
+    p = next(global_paths(dev))[1]
+    pr = p.disort._prepare(p.prop, p.bc, p.temf)
+    sweeps = K.kernel_sweeps(p.disort._ang0.mu.shape[0])
+    refs["offdiag"] = (sweeps, jacobi_offdiag(
+        pr["ssa_s"][:1], pr["pmom_s"][:1], p.disort._ang0, sweeps))
+    del p, pr
+    refs["seconds"] = time.perf_counter() - t0
+    return refs
+
+
+def global_bodies(regs: dict, N: int) -> dict[str, str]:
+    """Each body of N > 64 (``csrc/*_global.cu``): its ptxas line, the
+    elements (K1, K4) or columns (K2, K5) an SM by the occupancy
+    calculator and the global scratch a resident block keeps at ``N``."""
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    lib = K.build().lib
+    per_sm = {"stage1_isotropic": lib.pyharp_stage1_isotropic_global_occupancy(0),
+              "stage1_isotropic_beam":
+                  lib.pyharp_stage1_isotropic_global_occupancy(1),
+              "stage1_general": lib.pyharp_stage1_general_global_occupancy(),
+              "bvp_forward": lib.pyharp_bvp_forward_global_occupancy(),
+              "bvp_backward": lib.pyharp_bvp_backward_global_occupancy(N)}
+    # a launch over one unit of work runs one block
+    slab = {"stage1_isotropic":
+                lib.pyharp_stage1_isotropic_global_scratch(N, 0, 1),
+            "stage1_isotropic_beam":
+                lib.pyharp_stage1_isotropic_global_scratch(N, 1, 1),
+            "stage1_general": lib.pyharp_stage1_general_global_scratch(N, 1),
+            "bvp_forward": lib.pyharp_bvp_forward_global_scratch(N, 1),
+            "bvp_backward": lib.pyharp_bvp_backward_global_scratch(N, 1)}
+    unit = {"bvp_forward": "columns", "bvp_backward": "columns"}
+    return {n: f"{regs.get(GLOBAL_PTXAS[n])}, {per_sm[n]} "
+               f"{unit.get(n, 'elements')} an SM, {4 * slab[n]} B of global "
+               f"scratch a block at N = {N}"
+            for n in GLOBAL_PTXAS}
+
+
+def phase23(dev, card: str, regs: dict, refs: dict | None = None) -> list:
+    """Phase 23, beyond 128 streams: the route at nstr 130, 256 and 1000,
+    every body of N > 64 against its plain version at ``NSTR_GLOBAL``,
+    K4's off-diagonal after its sweeps at N = 128, then the four paths at
+    nstr 256 through ``kernel="auto"``; returns the entries of the
+    ``kernels`` line.  ``refs``: :func:`phase23_references`, computed
+    earlier (else here)."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import extra_problem, stage1_inputs
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from pyharp_tpu_torch.rt.disort.legendre import lepoly
+    from pyharp_tpu_torch.rt.disort.solver import make_static_angles
+
+    t23 = time.perf_counter()
+    kernels_json = []
+    clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"]).splitlines()[0])
+    bodies = global_bodies(regs, AEROSOL_GLOBAL[0] // 2)
+    say("23", "the bodies of N > 64: " + "; ".join(
+        f"{n} {v}" for n, v in bodies.items()) + f" [{card}]")
+
+    def ptxas(recs):
+        for r in recs:
+            r["ptxas"] = bodies[r["name"]]
+        return recs
+
+    # the route: float32 on the card goes to the kernels at every nstr,
+    # decided from the device, dtype and N before any launch
+    K.reset_launches()
+    for nstr in NSTR_ROUTE:
+        assert K.route("auto", "cuda", torch.float32, nstr // 2) == "cuda"
+        p = extra_problem(1, 2, 2, nstr, g=0.8, device=dev, kernel="auto")
+        assert p.disort._kernels(dev, torch.float32).route == "cuda", nstr
+        del p
+    assert not any(K.launch_counts().values()), K.launch_counts()
+    say("23", "route: float32 CUDA tensors at nstr "
+              + ", ".join(map(str, NSTR_ROUTE)) + " -> 'cuda', before any "
+              "launch")
+
+    # each body against its plain version on GLOBAL_CHECK_SHAPE's elements:
+    # K1 beam, and K1 against the beam variant's plain eigenstructure (the
+    # same function), bit-equal; K4 (m = 0 with a thermal source and a
+    # beam, m = 1 with a beam) bit-equal; K2 and K5 on its B columns x L
+    # layers, on K4's m = 0 eigenstructure with a drawn right-hand side and
+    # albedo
+    msgs = []
+    L, B = GLOBAL_CHECK_SHAPE
+    for nstr in NSTR_GLOBAL:
+        N = nstr // 2
+        ang = make_static_angles(nstr, nstr, 0)
+        rng = np.random.default_rng(2300 + nstr)
+        ssa, dtau, btop, slope = stage1_inputs(L, B, seed=2310 + nstr,
+                                               device=dev)
+        fbeam = torch.tensor(rng.uniform(0.5, 4.0, B), dtype=torch.float32,
+                             device=dev)
+        mu0 = torch.tensor(rng.uniform(0.1, 1.0, B), dtype=torch.float32,
+                           device=dev)
+        mur = mu0[None].expand(L, B).contiguous()
+        s1b = (ssa, dtau, btop, slope, fbeam, mur, ang)
+        want = K.stage1_isotropic_beam_plain(*s1b)
+        stage1_exact(K.stage1_isotropic_beam(*s1b), want,
+                     f"K1 beam nstr {nstr}")
+        stage1_exact(K.stage1_isotropic(ssa, dtau, btop, slope, ang),
+                     want[:7], f"K1 nstr {nstr}")
+        del want
+        pm = torch.tensor(
+            np.stack([hg_moments(0.2 if b % 2 else 0.8, nstr)
+                      for b in range(B)], axis=-1)[None].repeat(L, axis=0),
+            dtype=torch.float32, device=dev)
+        # the plain K4 of m = 0 (a thermal source and a beam) and m = 1 (a
+        # beam) in one pass (stage1_general_modes_plain: the bits of a call
+        # each), against a launch each
+        angs = [make_static_angles(nstr, nstr, m) for m in (0, 1)]
+        lam0s = [lepoly(mu0, a.m, a.lam_tables.shape[0] - 1).contiguous()
+                 for a in angs]
+        wants = K.stage1_general_modes_plain(
+            ssa, pm, dtau, angs, fbeam=fbeam, mur=mur, lam0s=lam0s,
+            btop=btop, slope=slope)
+        for a, lam0, want in zip(angs, lam0s, wants):
+            got = K.stage1_general(ssa, pm, dtau, btop, slope, a,
+                                   thermal=a.m == 0, fbeam=fbeam, mur=mur,
+                                   lam0=lam0)
+            stage1_exact(got, want,
+                         f"K4 nstr {nstr} m {a.m} thermal {a.m == 0}")
+        gp, gm, _, expd = (x.contiguous() for x in wants[0][:4])
+        del wants, got
+        dblk = torch.tensor(rng.uniform(-1.0, 1.0, (2 * N, L, B)),
+                            dtype=torch.float32, device=dev)
+        alb = torch.tensor(rng.uniform(0.0, 0.6, B), dtype=torch.float32,
+                           device=dev)
+        P, g = K.bvp_forward_plain(gp, gm, expd, dblk, alb, ang)
+        got = K.bvp_forward(gp, gm, expd, dblk, alb, ang)
+        e2 = bvp_check(got, (P, g), f"K2 nstr {nstr}")
+        assert all(bool(torch.equal(x, y)) for x, y in zip(got, (P, g))), (
+            f"K2 nstr {nstr}: not bit-equal to the plain version")
+        bwd = (gp, gm, expd, P, g, ang)
+        e5 = bvp_check(K.bvp_backward(*bwd), K.bvp_backward_plain(*bwd),
+                       f"K5 nstr {nstr}")
+        msgs.append(f"nstr {nstr}: K1, K1 beam, K4 (m 0, 1), K2 bit-equal "
+                    f"(K2 {e2:.2e}); K5 {e5:.2e}")
+        del pm, gp, gm, expd, dblk, P, g, bwd
+    torch.cuda.empty_cache()
+    say("23", f"at L {L} x B {B} (stage 1) and {B} columns x {L} layers "
+              "(BVP): " + "; ".join(msgs) + f" ({STAGE1_TOL}, asserted "
+              f"bit-equal; {BVP_TOL}); {time.perf_counter() - t23:.1f} s "
+              f"into phase 23 [{card}]")
+
+    if refs is None:
+        refs = phase23_references(dev)
+        say("23", f"the float64 references took {refs['seconds']:.1f} s")
+    sweeps, off = refs["offdiag"]
+    say("23", f"K4's Jacobi at N = 128 (nstr 256) on 128 elements of the "
+              "aerosol path (1 layer x 128 columns), float32 by the plain "
+              f"operations: max |off-diagonal of Y^T K Y| / max |lam^2| "
+              f"{off:.2e} after its {sweeps} sweeps")
+    for key, p, want, stride, tag, label in global_paths(dev):
+        kernels_json += stream_path("23", t23, card, clock_mhz, ptxas, label,
+                                    p, want, stride, tag, refs[key])
+        del p
+    torch.cuda.empty_cache()
+    kernels_json += radiance_path("23", dev, card, RADIANCE_GLOBAL, ptxas,
+                                  refs["radiances"], RADIANCE_GLOBAL_MODES,
+                                  light=True)
+    say("23", f"phase 23 took {time.perf_counter() - t23:.1f} s [{card}]")
+    return kernels_json
+
+
 def main() -> None:
     import torch
 
@@ -2401,13 +2688,15 @@ def main() -> None:
     # plain versions alone (their float64 references)
     with ThreadPoolExecutor(1) as pool:
         building = pool.submit(K.build)
+        refs23 = phase23_references(dev)
         refs22 = phase22_references(dev)
         refs21 = path_references(dev, big_paths, RADIANCE_BIG)
         lib = building.result()
     regs = ptxas_summary(lib.ptxas_log)
     say("1", f"built {lib.path.name} in {lib.build_seconds:.1f} s (the "
-             "float64 references of phases 22 and 21 meanwhile, "
-             f"{refs22['seconds']:.1f} and {refs21['seconds']:.1f} s); "
+             "float64 references of phases 23, 22 and 21 meanwhile, "
+             f"{refs23['seconds']:.1f}, {refs22['seconds']:.1f} and "
+             f"{refs21['seconds']:.1f} s); "
              "ptxas: " + "; ".join(f"{k}: {v}" for k, v in regs.items()))
     say("1", "the bodies of N = 9..16: K4 a team of 4 lanes per element, "
              "its Jacobi set in registers (stage1_general_wide<9..16>: "
@@ -3427,6 +3716,9 @@ def main() -> None:
 
     # ---- phase 22: 66 to 128 streams ----------------------------------------
     kernels_json += phase22(dev, card, regs, refs22)
+
+    # ---- phase 23: beyond 128 streams ---------------------------------------
+    kernels_json += phase23(dev, card, regs, refs23)
 
     print(card)
     print(json.dumps({"kernels": kernels_json}))

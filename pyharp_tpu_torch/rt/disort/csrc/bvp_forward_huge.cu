@@ -20,7 +20,9 @@
 // Design: a block of kWarps = 8 warps per column, one body for every
 // N = 33..64 with N a run-time argument.  The 2N x (3N + 1) system (98.8 KB
 // at N = 64), the layer's gp and gm, and the carry Q stay in shared memory
-// (150 KB at N = 64, one column an SM).  The system is built as
+// (150 KB at N = 64, one column an SM; the system alone passes a block's
+// 227 KB near N = 97, so past N = 64 bvp_forward_global.cu keeps it in
+// global scratch).  The system is built as
 // bvp_forward_big.cu builds it.  Each elimination step: warp 0 finds the
 // plain bubble's records of the pivot column over four sets of 32 rows
 // (huge.cuh's record_bits_sets), the threads over the live columns move

@@ -4,7 +4,8 @@
 // N x N systems of K1 beam and K4 (big.cuh's warp_lu_solve already spans
 // two halves of 32 rows), R = 4 the 2N = 128 rows of K2's system.  Past
 // N = 64 K2's 2N x (3N + 1) system (98.8 KB at N = 64) nears a block's
-// shared memory, so a body for larger N is a different design.
+// shared memory: the bodies of global.cuh take any N there, R a run-time
+// count and the matrices in global scratch.
 #pragma once
 
 #include "big.cuh"

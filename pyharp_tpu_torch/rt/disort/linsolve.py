@@ -13,7 +13,11 @@ on), each record's position takes the record before it (``col``'s row for
 the first), as the bubble leaves them.  The same strict ``>`` on the same
 values decides each swap, so NaNs, signed zeros and ties move as in the
 bubble and every output is bit for bit the bubble's, in some 20 tensor
-operations a column where the bubble takes five a row.
+operations a column where the bubble takes five a row.  On the card the
+back substitution forms each row's products in one operation, and the
+Cholesky each column's entries below the pivot together, every element's
+operations in the order of the loops they replace
+(``tests/test_torch_plain_vectorised.py``).
 """
 
 from __future__ import annotations
@@ -59,16 +63,34 @@ def lu_solve(A: Tensor, b: Tensor) -> Tensor:
         f = M[col + 1:, col] * inv
         M[col + 1:] = M[col + 1:] - f[:, None] * M[col][None]
 
-    x = [None] * n
-    for row in range(n - 1, -1, -1):
-        acc = M[row, n:]
-        for col in range(row + 1, n):
-            acc = acc - M[row, col][None] * x[col]
-        x[row] = acc / M[row, row][None]
-
-    out = torch.stack(x, dim=0)
+    out = back_substitute(M, n, by_rows=M.is_cuda)
     if vec:
         out = out[:, 0]
+    return out
+
+
+def back_substitute(M: Tensor, n: int, by_rows: bool) -> Tensor:
+    """The solution of the eliminated system ``M`` ``(n, n + k, *batch)``
+    (upper triangular in its first n columns): each row's right-hand sides
+    less its products with the unknowns below it, in ascending column
+    order, over its pivot.  With ``by_rows`` a row's products are formed in
+    one operation: the same products and the same order of subtractions,
+    so the same floats; CUDA's arithmetic gives any NaN result one bit
+    pattern, but the CPU's loops can return a NaN operand's sign from
+    either side of a product depending on the shapes, so on the CPU each
+    product stays an operation of its own and the NaNs are the bubble's
+    bit for bit (``tests/test_torch_lu_records.py``)."""
+    out = torch.empty_like(M[:, n:])
+    for row in range(n - 1, -1, -1):
+        acc = M[row, n:]
+        if by_rows:
+            prods = M[row, row + 1:n, None] * out[row + 1:]
+            for j in range(n - 1 - row):
+                acc = acc - prods[j]
+        else:
+            for col in range(row + 1, n):
+                acc = acc - M[row, col][None] * out[col]
+        out[row] = acc / M[row, row][None]
     return out
 
 
@@ -84,19 +106,18 @@ def cholesky_lower(A: Tensor, floor: float = 1e-30) -> Tensor:
       ``L`` of shape ``(n, n, *batch)``, lower-triangular, ``A ~= L L^T``.
     """
     n = A.shape[0]
-    Lc = [[None] * n for _ in range(n)]
+    # column j's entries below the pivot together, each one's terms in
+    # ascending k as a loop over the rows takes them
+    Lc = torch.zeros_like(A)
     for j in range(n):
         d = A[j, j]
         for k in range(j):
-            d = d - Lc[j][k] * Lc[j][k]
+            d = d - Lc[j, k] * Lc[j, k]
         d = torch.sqrt(d.clamp_min(floor))
-        Lc[j][j] = d
+        Lc[j, j] = d
         inv = 1.0 / d
-        for i in range(j + 1, n):
-            v = A[i, j]
-            for k in range(j):
-                v = v - Lc[i][k] * Lc[j][k]
-            Lc[i][j] = v * inv
-    zero = torch.zeros_like(A[0, 0])
-    return torch.stack([torch.stack([Lc[i][j] if j <= i else zero
-                                     for j in range(n)]) for i in range(n)])
+        v = A[j + 1:, j]
+        for k in range(j):
+            v = v - Lc[j + 1:, k] * Lc[j, k][None]
+        Lc[j + 1:, j] = v * inv[None]
+    return Lc

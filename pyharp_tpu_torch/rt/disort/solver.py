@@ -287,25 +287,13 @@ def beam_source_moments(ssa: Tensor, pmom: Tensor, lam0: Tensor,
     kappa = beam_kappa(ang.m)
     ls = torch.arange(G, dtype=dtype, device=ssa.device)
     coef = g * ((2 * ls + 1) * parity)[None, :, None] * lam0[None]
-    lam_tab, par = ang.lam_tables, ang.parity
-
-    def qsum(signed):
-        rows = []
-        for i in range(lam_tab.shape[1]):
-            acc = None
-            for gidx in range(min(G, ang.nstr)):   # truncated at nstr - 1
-                t = float(lam_tab[gidx, i])
-                if signed:
-                    t *= float(par[gidx])
-                if t == 0.0:
-                    continue
-                term = coef[:, gidx, :] * t
-                acc = term if acc is None else acc + term
-            rows.append(torch.zeros_like(coef[:, 0, :]) if acc is None
-                        else acc)
-        return torch.stack(rows, dim=0)
-
-    return kappa * qsum(False), kappa * qsum(True)
+    # truncated at l = nstr - 1; every node's sum in l order, its zero
+    # terms skipped, all nodes at once (_ucontract_g)
+    Gt = min(G, ang.nstr)
+    tab = np.asarray(ang.lam_tables[:Gt], np.float64)
+    par = np.asarray(ang.parity[:Gt], np.float64)[:, None]
+    return (kappa * _ucontract_g(coef[:, :Gt], tab),
+            kappa * _ucontract_g(coef[:, :Gt], tab * par))
 
 
 def _beam_from_q(sol, Vfull, Ufull, qp, qm, ssa, fbeam, mu_r, mu_np):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Pin the JAX package's answers at 66 to 128 streams, where JAX is too slow
+"""Pin the JAX package's answers at 66 to 130 streams, where JAX is too slow
 on a CPU to run inside the tests.
 
     JAX_PLATFORMS=cpu python3 tests/make_stream128_golden.py [--parts ...] [--out F]
@@ -8,7 +8,8 @@ The cases are ``tests/make_stream64_golden.py``'s (``forward_case``,
 ``intensity_case``), run the same way: JAX's ``kernel="xla"`` path in
 float64, eagerly, the answers stored beside the inputs:
 
-* ``Disort.forward`` at nstr 66 and 128;
+* ``Disort.forward`` at nstr 66, 128 and 130 (N = 65, past the bodies of
+  N <= 64);
 * ``Disort.intensities`` at nstr 66.
 
 It writes ``tests/golden/stream128_jax.npz`` (or ``--out``), keeping the
@@ -33,7 +34,7 @@ sys.path[:0] = [str(REPO)]
 from tests.make_stream64_golden import forward_case, intensity_case  # noqa: E402
 
 OUT = REPO / "tests" / "golden" / "stream128_jax.npz"
-FORWARD_NSTR = (66, 128)
+FORWARD_NSTR = (66, 128, 130)
 INTENSITY_NSTR = (66,)
 PARTS = (tuple(f"forward{n}" for n in FORWARD_NSTR)
          + tuple(f"intensities{n}" for n in INTENSITY_NSTR))

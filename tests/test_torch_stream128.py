@@ -2,14 +2,15 @@
 in ``tests/golden/stream128_jax.npz`` (``tests/make_stream128_golden.py``:
 on a CPU JAX takes tens of minutes for each of them).
 
-``Disort.forward`` (a beam, HG moments, Planck emission) at nstr 66 and
-128, and ``Disort.intensities`` (user angles and depths, the intensity
-correction) at nstr 66, through the port's plain path in float64 against
+``Disort.forward`` (a beam, HG moments, Planck emission) at nstr 66, 128
+and 130 (N = 65, past the bodies of N <= 64), and ``Disort.intensities``
+(user angles and depths, the intensity correction) at nstr 66, through
+the port's plain path in float64 against
 JAX ``kernel="xla"`` in float64: 1e-12 of max|flux| and of max|uu|, the
 bound ``tests/test_torch_stream64.py`` holds nstr 34 and 64 to.  The cases
 are ``tests/make_stream64_golden.py``'s.  The float32 kernels that run
 these stream counts on the card are held to the plain versions by
-``chip_smoke.py`` phase 22.
+``chip_smoke.py`` phases 22 and 23.
 """
 
 from __future__ import annotations
