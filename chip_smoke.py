@@ -13,7 +13,8 @@ K2, K3); the 16-stream aerosol problem with a beam of ``bench_extra.py``
 ``Radiation`` layer.  The radiances of ``Disort.intensities``: every
 azimuthal mode of ``bench_extra.py``'s radiance problem (32 x 512 x 40,
 K4 once per mode, K2 and K5 twice: m = 0, then the modes m >= 1 folded into
-the batch axis), and ``Radiation.band_radiances``.  Phases, one line each
+the batch axis; above 64 streams K4 twice too, the modes m >= 1 in one
+launch), and ``Radiation.band_radiances``.  Phases, one line each
 or more:
 
 0. device: needs CUDA (raises otherwise); prints the card, its power limit,
@@ -230,8 +231,9 @@ or more:
     128 x 40, ``AEROSOL_HUGE``; float64 on every 5th wave; K4, K2, K5), the
     isotropic thermal solve (8 x 256 x 20; K1, K2, K5), the isotropic
     beam (the first 25 of 500 waves x 64 x 20; K1 beam, K2, K5; float64 on
-    every 5th wave) and ``Disort.intensities`` (1 x 16 x 8: K4 128 times,
-    K2 and K5 twice);
+    every 5th wave) and ``Disort.intensities`` (1 x 16 x 8: K4 twice, m =
+    0 and the 127 modes m >= 1 in one launch, held bit-equal at m = 0 and
+    ``RADIANCE_HUGE_MODES``, every mode timed; K2 and K5 twice);
 23. beyond 128 streams: the bodies of N > 64 (``csrc/*_global.cu``, any N,
     their matrices in global scratch), their ptxas lines, elements
     (columns) an SM and the scratch a resident block keeps at N = 128;
@@ -248,8 +250,9 @@ or more:
     its first 10 layers, ``AEROSOL_GLOBAL``; K4, K2, K5), the isotropic
     thermal solve (1 x 63 x 11; K1, K2, K5), the isotropic beam (the first
     3 of 500 waves x 21 x 11; K1 beam, K2, K5) and ``Disort.intensities``
-    (1 x 4 x 4: K4 256 times, held bit-equal at m = 0 and
-    ``RADIANCE_GLOBAL_MODES``, K2 and K5 twice); the float64 references
+    (1 x 4 x 4: K4 twice, m = 0 and the 255 modes m >= 1 in one launch,
+    held bit-equal at m = 0 and ``RADIANCE_GLOBAL_MODES``, every mode
+    timed; K2 and K5 twice); the float64 references
     run on the card while ``nvcc`` builds, as phases 21 and 22's.
 
 The problems, the roofline counts and the card's peaks come from
@@ -1154,16 +1157,17 @@ def beam_records(path, launches, pr, md, ang, near=None,
             kernel_flops("bvp_backward", N, L, B), near=near, once=once))
     return recs
 
-def radiance_k4(ds, pr, modes, check=None, launch_all=True):
+def radiance_k4(ds, pr, modes, check=None):
     """K4 at every mode of a radiance solve (no thermal source) as the path
-    launches it, m = 0 then the modes m >= 1 with their zero thermal
-    inputs, and its plain version: every mode in one pass
+    launches it, m = 0, then the modes m >= 1 through
+    ``kernels.stage1_general_modes`` (one launch at N > 32, one a mode
+    below), and its plain version: every mode in one pass
     (``kernels.stage1_general_modes_plain``, the bits of a call per mode).
     Returns ``(kernel, plain, lam00)``, the first two taking no arguments
-    and giving every mode's outputs in one tuple; with ``check``, a set of
-    modes m >= 1, only m = 0's and theirs (the kernel still launched at
-    every mode unless ``launch_all`` is false, the plain version run at
-    those alone)."""
+    and giving every mode's outputs ``(gp, gm, lam, expd, y0p, y0m, y1, zp,
+    zm)`` in one tuple; with ``check``, a set of modes m >= 1, only m = 0's
+    and theirs (the kernel still launched at every mode, the plain version
+    run at those alone)."""
     import torch
 
     from pyharp_tpu_torch.rt.disort import kernels as K
@@ -1174,19 +1178,15 @@ def radiance_k4(ds, pr, modes, check=None, launch_all=True):
     angs = [ds._angles(m) for m in modes["ms"]]
     s4 = (pr["ssa_s"], pr["pmom_s"], pr["dtau"])
     b4 = dict(fbeam=pr["fbeam"], mur=modes["mur"])
-    zero = torch.zeros_like(pr["ssa_s"])
     keep = [i for i, m in enumerate(modes["ms"]) if check is None or m in check]
 
     def kernel():
         outs = K.stage1_general(*s4, pr["b_top_lay"], pr["slope"], ang0,
                                 thermal=False, lam0=lam00, **b4)
-        for i, (a, l0) in enumerate(zip(angs, modes["lam0"])):
-            if not launch_all and i not in keep:
-                continue
-            o = K.stage1_general(*s4, zero, zero, a, thermal=False, lam0=l0,
-                                 **b4)
-            if i in keep:
-                outs += o
+        folded = K.stage1_general_modes(*s4, angs, lam0s=modes["lam0"], **b4)
+        for i in keep:
+            gp, gm, lam, expd, zp, zm = (x[..., i, :] for x in folded)
+            outs += (gp, gm, lam, expd, *[K.zero_particular(lam)] * 3, zp, zm)
         return outs
 
     def plain():
@@ -1871,20 +1871,20 @@ def stream_path(phase, t0, card, clock_mhz, ptxas, label, p, want, stride,
 
 
 def radiance_path(phase, dev, card, shape, ptxas, reference=None,
-                  k4_modes=None, light=False) -> list:
+                  k4_modes=None) -> list:
     """The radiances of ``radiance_problem`` at ``shape`` (nwave, ncol,
-    nlyr, nstr) through ``kernel="auto"``: K4 once per mode (nstr), K2 and
-    K5 twice; float64 on every 10th wave with float32's resonance floor (on
-    the columns with every layer over RESONANCE_MARGIN from a resonance the
-    floor never acts, so there that run is the float64 answer;
-    ``reference``, :func:`radiance_reference`'s first two outputs under
-    that floor, where computed earlier); each kernel against its plain
-    version on the path's inputs, K4 bit-equal at every mode (at m = 0 and
-    the modes ``k4_modes`` where given, every mode timed) (phases 21, 22).
-    ``light`` (phase 23, where K4 takes ~0.3 s a launch): the step is the
-    counted call's time, and K4 is launched and timed at m = 0 and
-    ``k4_modes`` alone after the counted call.  Returns the kernels'
-    entries."""
+    nlyr, nstr) through ``kernel="auto"``: K4 twice at N > 32 (m = 0, then
+    the modes m >= 1 in one launch; phases 22, 23) and nstr times below
+    (phase 21), K2 and K5 twice; float64 on every 10th wave with float32's
+    resonance floor (on the columns with every layer over RESONANCE_MARGIN
+    from a resonance the floor never acts, so there that run is the float64
+    answer; ``reference``, :func:`radiance_reference`'s first two outputs
+    under that floor, where computed earlier); each kernel against its
+    plain version on the path's inputs, K4 bit-equal at every mode (at
+    m = 0 and the modes ``k4_modes`` where given; every mode launched and
+    timed).  The step is timed after the counted call, which also builds
+    and uploads every mode's tables (printed as the first call).  Returns
+    the kernels' entries."""
     import torch
 
     from pyharp_tpu_torch.bench.problems import radiance_problem
@@ -1903,7 +1903,9 @@ def radiance_path(phase, dev, card, shape, ptxas, reference=None,
     stop.record()
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    expect_launches(launches, stage1_general=nstr, bvp_forward=2,
+    # K4 at m = 0, then the modes: one launch at N > 32, one a mode below
+    expect_launches(launches, stage1_general=(
+        2 if nstr // 2 > K.BIG_MAX_N else nstr), bvp_forward=2,
                     bvp_backward=2)
     ds64, args64, sel = wave_subset(p, 10, torch.float64, "torch")
     if reference is None:
@@ -1916,23 +1918,21 @@ def radiance_path(phase, dev, card, shape, ptxas, reference=None,
     res = radiance_errors(sub, ref_f, ref_f, near)
     del ds64, args64, ref_f, sub
     torch.cuda.empty_cache()
-    ms_step = (start.elapsed_time(stop) if light else
-               cuda_ms(lambda: ds.intensities(p.prop, p.bc)["uu"], 2))
+    ms_first = start.elapsed_time(stop)
+    ms_step = cuda_ms(lambda: ds.intensities(p.prop, p.bc)["uu"], 2)
     pr = ds._prepare(p.prop, p.bc, None)
     modes = ds._modes_batched(pr)
     fgp, fgm, fexpd, dblk, alb = modes["fold"]
     L, B, N, nm = pr["L"], pr["B"], modes["N"], len(modes["ms"])
     tag = f"radiances {'x'.join(map(str, shape[:3]))} nstr {nstr}"
     ang0 = ds._ang0
-    k4_kernel, k4_plain, lam00 = radiance_k4(ds, pr, modes, k4_modes,
-                                             launch_all=not light)
-    # the modes K4's time covers, and with them its bound
-    timed = len(k4_modes) + 1 if light else nm + 1
+    k4_kernel, k4_plain, lam00 = radiance_k4(ds, pr, modes, k4_modes)
+    # K4's time and its bound cover every mode
+    timed = nm + 1
     nmom = pr["pmom_s"].shape[1]
     held = ("" if k4_modes is None else
-            (" (launched, held and timed at m = " if light else
-             " (held at m = ")
-            + ", ".join(map(str, (0, *sorted(k4_modes)))) + ")")
+            " (held at m = " + ", ".join(map(str, (0, *sorted(k4_modes))))
+            + ")")
     recs = [kernel_record(
         "stage1_general", tag + f", modes 0..{nm}" + held,
         launches["stage1_general"],
@@ -1971,7 +1971,8 @@ def radiance_path(phase, dev, card, shape, ptxas, reference=None,
                    f"{f:.2e} on the {n_near} near ones (<= {NEAR_RESONANCE_TOL})"
                    for k, (a, f, _, _) in res.items())
                + f"; peak device memory {peak:.1f} GiB; step {ms_step:.3f} ms "
-               f"= {nrad / ms_step * 1e3:.0f} radiances/s ({nrad}); per "
+               f"= {nrad / ms_step * 1e3:.0f} radiances/s ({nrad}; the first "
+               f"call, the tables built, {ms_first:.3f} ms); per "
                f"kernel (K4 over the {nm + 1} modes, bit-equal to its plain "
                f"version on every column{held}): " + records_line(ptxas(recs))
                + f" [{card}]")
@@ -1980,6 +1981,24 @@ def radiance_path(phase, dev, card, shape, ptxas, reference=None,
     del p, ds, out, pr, modes, fgp, fgm, fexpd, dblk, alb, Pm, gm_
     torch.cuda.empty_cache()
     return recs
+
+
+def folded_check(ssa, pmom, dtau, fbeam, mur, modes: dict, what: str):
+    """K4's launch over several modes (``kernels.stage1_general_modes``, a
+    beam and no thermal source) against the plain version of each:
+    ``modes`` maps m to ``(angles, lam0, plain outputs)``; every mode's
+    outputs bit-equal (asserted)."""
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    ms = sorted(modes)
+    got = K.stage1_general_modes(ssa, pmom, dtau, [modes[m][0] for m in ms],
+                                 fbeam=fbeam, mur=mur,
+                                 lam0s=[modes[m][1] for m in ms])
+    for i, m in enumerate(ms):
+        want = modes[m][2]
+        stage1_exact([x[..., i, :] for x in got],
+                     [want[j] for j in (0, 1, 2, 3, 7, 8)],
+                     f"K4's modes launch {what} m {m}")
 
 
 # ---- 34 to 64 streams (phase 21) --------------------------------------------
@@ -2363,6 +2382,7 @@ def phase22(dev, card: str, regs: dict, refs: dict | None = None) -> list:
                       for b in range(B)], axis=-1)[None].repeat(L, axis=0),
             dtype=torch.float32, device=dev)
         modes = (0, 1) + ((N - 1,) if nstr == NSTR_HUGE[-1] else ())
+        folded = {}
         for m in modes:
             angm = make_static_angles(nstr, nstr, m)
             lam0 = lepoly(mu0, m, angm.lam_tables.shape[0] - 1).contiguous()
@@ -2373,7 +2393,10 @@ def phase22(dev, card: str, regs: dict, refs: dict | None = None) -> list:
                          f"K4 nstr {nstr} m {m} thermal {m == 0}")
             if m == 0:
                 gp, gm, _, expd = want[:4]
+            else:
+                folded[m] = (angm, lam0, want)
             del want
+        folded_check(ssa, pm, dtau, fbeam, mur, folded, f"nstr {nstr}")
         dblk = torch.tensor(rng.uniform(-1.0, 1.0, (2 * N, L, B)),
                             dtype=torch.float32, device=dev)
         alb = torch.tensor(rng.uniform(0.0, 0.6, B), dtype=torch.float32,
@@ -2385,7 +2408,9 @@ def phase22(dev, card: str, regs: dict, refs: dict | None = None) -> list:
         e5 = bvp_check(K.bvp_backward(*bwd), K.bvp_backward_plain(*bwd),
                        f"K5 nstr {nstr}")
         msgs.append(f"nstr {nstr}: {k1}; K4 (m "
-                    + ", ".join(map(str, modes)) + f") bit-equal; K2 "
+                    + ", ".join(map(str, modes)) + ", and m "
+                    + ", ".join(map(str, modes[1:])) + " in one launch) "
+                    f"bit-equal; K2 "
                     f"{e2:.2e}, K5 {e5:.2e}")
         del pm, gp, gm, expd, dblk, P, g, bwd
     torch.cuda.empty_cache()
@@ -2609,6 +2634,8 @@ def phase23(dev, card: str, regs: dict, refs: dict | None = None) -> list:
                                    lam0=lam0)
             stage1_exact(got, want,
                          f"K4 nstr {nstr} m {a.m} thermal {a.m == 0}")
+        folded_check(ssa, pm, dtau, fbeam, mur,
+                     {1: (angs[1], lam0s[1], wants[1])}, f"nstr {nstr}")
         gp, gm, _, expd = (x.contiguous() for x in wants[0][:4])
         del wants, got
         dblk = torch.tensor(rng.uniform(-1.0, 1.0, (2 * N, L, B)),
@@ -2623,7 +2650,8 @@ def phase23(dev, card: str, regs: dict, refs: dict | None = None) -> list:
         bwd = (gp, gm, expd, P, g, ang)
         e5 = bvp_check(K.bvp_backward(*bwd), K.bvp_backward_plain(*bwd),
                        f"K5 nstr {nstr}")
-        msgs.append(f"nstr {nstr}: K1, K1 beam, K4 (m 0, 1), K2 bit-equal "
+        msgs.append(f"nstr {nstr}: K1, K1 beam, K4 (m 0, 1, and m 1 through "
+                    "the modes launch), K2 bit-equal "
                     f"(K2 {e2:.2e}); K5 {e5:.2e}")
         del pm, gp, gm, expd, dblk, P, g, bwd
     torch.cuda.empty_cache()
@@ -2646,8 +2674,7 @@ def phase23(dev, card: str, regs: dict, refs: dict | None = None) -> list:
         del p
     torch.cuda.empty_cache()
     kernels_json += radiance_path("23", dev, card, RADIANCE_GLOBAL, ptxas,
-                                  refs["radiances"], RADIANCE_GLOBAL_MODES,
-                                  light=True)
+                                  refs["radiances"], RADIANCE_GLOBAL_MODES)
     say("23", f"phase 23 took {time.perf_counter() - t23:.1f} s [{card}]")
     return kernels_json
 

@@ -33,15 +33,20 @@
 // from row q's lane by a shuffle of what that lane read of its own row, so
 // the huge body's one __syncwarp a rotation still orders the sweeps; up
 // to N = 256 (8 row sets) the carried values stay in registers, the body
-// compiled for each set count, and a rotation loads all of a lane's slots
-// before it stores any (sweeps_sets).  The
+// compiled for each set count, and the sweeps are the huge body's
+// (general_huge.cuh's sweeps_rows<R>: the rotation's chain straight
+// through, the slots of the next rotation loaded right after the barrier,
+// the row updates as selects; above 8 sets sweeps_global, every rotation
+// in turn).  The radiances' modes m >= 1 come in one launch
+// (pyharp_stage1_general_global_modes: at nstr 256 a mode has 16 elements
+// of 1 x 4 x 4, and the 255 modes keep every resident warp busy).  The
 // rotation's quotients and square roots take the fast paths behind the
 // same two range checks (general.cuh's rotation_checked); the LUs are
 // global.cuh's warp LU.
 // chip_smoke.py phase 23 prints registers, stack and spills;
 // tests/test_torch_global_k4.py models the body on the CPU.
 
-#include "general.cuh"
+#include "general_huge.cuh"
 #include "global.cuh"
 
 namespace {
@@ -123,91 +128,10 @@ __device__ __forceinline__ void sweeps_global(float* X, float* Y, int ld,
   }
 }
 
-// sweeps_global with the rows' carried values in registers, for R row
-// sets known at compile time (N up to 32 R): arp[h], yrp[h] and dq[h] for
-// row t + 32 h, a_pq picked from the register of q's set and shuffled from
-// lane q mod 32.  A rotation's slots of the lane's rows are distinct, so
-// all are loaded before any is stored: R loads of X and of Y in flight
-// where the scratch form waits for each.  The operations are
-// sweeps_global's, so are the bits.
+// The sweeps with the rows' carried values in registers (general_huge.cuh's
+// sweeps_rows<R>), for R row sets known at compile time (N up to 32 R).
 constexpr int kRegSetsMin = 3;             // row_sets(65)
 constexpr int kRegSetsMax = 8;             // N up to 256
-
-template <int R>
-__device__ __forceinline__ void sweeps_sets(float* X, float* Y, int ld, int n,
-                                            int sweeps, int t) {
-  for (int it = 0; it < sweeps; ++it) {
-    for (int p = 0; p + 1 < n; ++p) {
-      float app = X[p * ld + p];
-      float arp[R];
-      float yrp[R];
-      float dq[R];
-#pragma unroll
-      for (int h = 0; h < R; ++h) {
-        const int r = t + 32 * h;
-        arp[h] = 0.0f;
-        yrp[h] = 0.0f;
-        dq[h] = 0.0f;
-        if (r < n) {
-          arp[h] = r == p ? 0.0f : (r > p ? X[r * ld + p] : X[p * ld + r]);
-          yrp[h] = Y[r * ld + p];
-        }
-      }
-      for (int q = p + 1; q < n; ++q) {
-        const int hq = q >> 5;
-        float own = arp[0];
-#pragma unroll
-        for (int h = 1; h < R; ++h) own = h == hq ? arp[h] : own;
-        const float apq = __shfl_sync(kBigFull, own, q & 31);
-        const float aqq = X[q * ld + q];
-        float c, s, new_pp, new_qq;
-        rotation_checked(app, apq, aqq, c, s, new_pp, new_qq);
-        float arq[R];
-        float vrq[R];
-#pragma unroll
-        for (int h = 0; h < R; ++h) {
-          const int r = t + 32 * h;
-          arq[h] = 0.0f;
-          vrq[h] = 0.0f;
-          if (r < n) {
-            if (r != p && r != q) arq[h] = X[r > q ? r * ld + q : q * ld + r];
-            vrq[h] = Y[r * ld + q];
-          }
-        }
-#pragma unroll
-        for (int h = 0; h < R; ++h) {
-          const int r = t + 32 * h;
-          if (r >= n) continue;
-          if (r != p && r != q) {
-            const float nrp = c * arp[h] - s * arq[h];
-            X[r > q ? r * ld + q : q * ld + r] = s * arp[h] + c * arq[h];
-            arp[h] = nrp;
-          } else if (r == q) {
-            arp[h] = 0.0f;
-            dq[h] = new_qq;
-          }
-          Y[r * ld + q] = s * yrp[h] + c * vrq[h];
-          yrp[h] = c * yrp[h] - s * vrq[h];
-        }
-        app = new_pp;
-        __syncwarp();
-      }
-#pragma unroll
-      for (int h = 0; h < R; ++h) {
-        const int r = t + 32 * h;
-        if (r >= n) continue;
-        if (r == p) {
-          X[p * ld + p] = app;
-        } else {
-          X[r > p ? r * ld + p : p * ld + r] = arp[h];
-        }
-        if (r > p) X[r * ld + r] = dq[h];
-        Y[r * ld + p] = yrp[h];
-      }
-      __syncwarp();
-    }
-  }
-}
 
 // The sweeps: in registers up to kRegSetsMax row sets, else in scratch.
 template <int R = kRegSetsMin>
@@ -217,7 +141,7 @@ __device__ __forceinline__ void sweeps_any(float* X, float* Y, int ld, int n,
   if constexpr (R > kRegSetsMax) {
     sweeps_global(X, Y, ld, n, sweeps, t, arp, yrp, dq);
   } else if (row_sets(n) == R) {
-    sweeps_sets<R>(X, Y, ld, n, sweeps, t);
+    sweeps_rows<R, false>(X, Y, ld, n, sweeps, t);
   } else {
     sweeps_any<R + 1>(X, Y, ld, n, sweeps, t, arp, yrp, dq);
   }
@@ -241,9 +165,9 @@ stage1_general_global_kernel(const float* __restrict__ ssa_in,
                              float* __restrict__ y1_out,
                              float* __restrict__ zp_out,
                              float* __restrict__ zm_out, int n, int nmom,
-                             int sweeps, int mode, int thermal, int beam,
+                             int sweeps, int mode0, int thermal, int beam,
                              int64_t L, int64_t B,
-                             const float* __restrict__ tab,
+                             const float* __restrict__ tab0, K4Modes modes,
                              float* scratch) {
   const GlobalK4Geom G(n);
   const int64_t lb = L * B;
@@ -267,20 +191,27 @@ stage1_general_global_kernel(const float* __restrict__ ssa_in,
   float* vb = X + n;
   const GenTab T(n);
   const int lmax = nmom < 2 * n - 1 ? nmom : 2 * n - 1;
-  const int p0 = mode;              // first nonzero rows: l = m (even l - m)
-  const int p1 = mode + 1;          // and l = m + 1 (odd)
-  const float* even = tab + T.even;
-  const float* odd = tab + T.odd;
-  const float* mu = tab + T.mu;
-  const float* w = tab + T.w;
-  const float* sqw = tab + T.sqw;
-  const float* sqm = tab + T.sqm;
   // Lc[i][j], j <= i: the pivot vector, else X's upper triangle
   auto lc = [&](int i, int j) { return i == j ? piv[i] : X[j * ld + i]; };
 
-  for (int64_t e = warp; e < lb; e += warps) {
-    const int64_t layer = e / B;
-    const int64_t b = e - layer * B;
+  for (int64_t ef = warp; ef < modes.nm * lb; ef += warps) {
+    const K4Element E(ef, lb, B, modes, tab0, mode0, lam0_in);
+    const int64_t e = E.e;             // the inputs' (layer, column)
+    const int64_t layer = E.layer;
+    const int64_t b = E.b;
+    const int64_t o = E.o;             // the outputs' element and stride
+    const int64_t os = E.os;
+    const int mode = E.mode;
+    const float* tab = E.tab;
+    const float* lam0 = E.lam0;
+    const int p0 = mode;            // first nonzero rows: l = m (even l - m)
+    const int p1 = mode + 1;        // and l = m + 1 (odd)
+    const float* even = tab + T.even;
+    const float* odd = tab + T.odd;
+    const float* mu = tab + T.mu;
+    const float* w = tab + T.w;
+    const float* sqw = tab + T.sqw;
+    const float* sqm = tab + T.sqm;
     const float ssa = ssa_in[e];
 
     // the moments g_0 = 1, g_1..g_lmax (0 above lmax)
@@ -437,13 +368,13 @@ stage1_general_global_kernel(const float* __restrict__ ssa_in,
       for (int r = t; r < n; r += 32) {
         const float gpn = c0[r] / scale;
         const float gmn = c1[r] / scale;
-        gp_out[static_cast<int64_t>(r * n + k) * lb + e] = gpn;
-        gm_out[static_cast<int64_t>(r * n + k) * lb + e] = gmn;
+        gp_out[static_cast<int64_t>(r * n + k) * os + o] = gpn;
+        gm_out[static_cast<int64_t>(r * n + k) * os + o] = gmn;
         Y[r * ld + k] = gpn + gmn;
       }
       if (t == (k & 31)) {
-        lam_out[k * lb + e] = lk;
-        expd_out[k * lb + e] = expf(-lk * dtau);
+        lam_out[k * os + o] = lk;
+        expd_out[k * os + o] = expf(-lk * dtau);
       }
     }
     __syncwarp();
@@ -465,7 +396,7 @@ stage1_general_global_kernel(const float* __restrict__ ssa_in,
         for (int l = 0; l < 2 * n && l <= lmax; ++l) {
           const float tl = tab[T.lam + l * n + r];
           if (tl != 0.0f) {
-            const float coef = (gs[l] * tab[T.c2p + l]) * lam0_in[l * B + b];
+            const float coef = (gs[l] * tab[T.c2p + l]) * lam0[l * B + b];
             const float tp = coef * tl;
             const float tm = coef * tab[T.lam_signed + l * n + r];
             accp = first ? tp : accp + tp;
@@ -517,8 +448,8 @@ stage1_general_global_kernel(const float* __restrict__ ssa_in,
         float uz = X[r * ld] * vb[0];
         for (int j = 1; j < n; ++j) uz = uz + X[r * ld + j] * vb[j * ld];
         const float zd = -mur * (uz - c0[r]) / mu[r];
-        zp_out[r * lb + e] = 0.5f * (c2[r] + zd);
-        zm_out[r * lb + e] = 0.5f * (c2[r] - zd);
+        zp_out[r * os + o] = 0.5f * (c2[r] + zd);
+        zm_out[r * os + o] = 0.5f * (c2[r] - zd);
       }
       __syncwarp();
     }
@@ -540,7 +471,7 @@ stage1_general_global_kernel(const float* __restrict__ ssa_in,
         const float hv = X[r * ld + n];
         c0[r] = hv;
         const float y1 = slope * hv;
-        y1_out[r * lb + e] = y1;
+        y1_out[r * os + o] = y1;
         Y[r * ld + n] = (2.0f * mu[r]) * y1;
       }
       for (int j = t; j < n; j += 32) {
@@ -550,8 +481,8 @@ stage1_general_global_kernel(const float* __restrict__ ssa_in,
       warp_lu_solve_global(Y, ld, n, 1, t, bits);
       for (int r = t; r < n; r += 32) {
         const float y0d = Y[r * ld + n];
-        y0p_out[r * lb + e] = btop * c0[r] + 0.5f * y0d;
-        y0m_out[r * lb + e] = btop * c0[r] - 0.5f * y0d;
+        y0p_out[r * os + o] = btop * c0[r] + 0.5f * y0d;
+        y0m_out[r * os + o] = btop * c0[r] - 0.5f * y0d;
       }
     }
     __syncwarp();                    // the slab is free for the next element
@@ -576,15 +507,36 @@ int64_t grid_of(int64_t lb) {
   return warps < 0 ? -1 : (warps + kElems - 1) / kElems;
 }
 
+// The launch over modes.nm modes of L B elements each.
+int launch(int n, int thermal, int beam, const float* ssa, const float* pmom,
+           const float* dtau, const float* btop, const float* slope,
+           const float* fbeam, const float* mur, const float* lam0, float* gp,
+           float* gm, float* lam, float* expd, float* y0p, float* y0m,
+           float* y1, float* zp, float* zm, int nmom, int sweeps, int mode,
+           int64_t L, int64_t B, const float* tab, K4Modes modes,
+           float* scratch, void* stream) {
+  if (n < kGlobalMinN) return PYHARP_UNSUPPORTED_N;
+  const int64_t elems = modes.nm * L * B;
+  if (elems == 0) return 0;
+  const int64_t grid = grid_of(elems);
+  if (grid < 0) return static_cast<int>(cudaGetLastError());
+  stage1_general_global_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      ssa, pmom, dtau, btop, slope, fbeam, mur, lam0, gp, gm, lam, expd, y0p,
+      y0m, y1, zp, zm, n, nmom, sweeps, mode, thermal, beam, L, B, tab,
+      modes, scratch);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Floats of global scratch a launch over L B elements needs, a slab a
-// resident warp; -1 on an error.
+// Floats of global scratch a launch over `elems` elements needs (L B, or
+// nm L B over nm modes), a slab a resident warp; -1 on an error.
 PYHARP_API long long pyharp_stage1_general_global_scratch(int n,
-                                                          long long lb) {
+                                                          long long elems) {
   if (n < kGlobalMinN) return -1;
-  if (lb == 0) return 0;
-  const int64_t grid = grid_of(lb);
+  if (elems == 0) return 0;
+  const int64_t grid = grid_of(elems);
   return grid < 0 ? -1 : grid * kElems * GlobalK4Geom(n).floats;
 }
 
@@ -597,17 +549,23 @@ PYHARP_API int pyharp_stage1_general_global(
     float* gm, float* lam, float* expd, float* y0p, float* y0m, float* y1,
     float* zp, float* zm, int nmom, int sweeps, int mode, long long L,
     long long B, const float* tab, float* scratch, void* stream) {
-  if (n < kGlobalMinN) return PYHARP_UNSUPPORTED_N;
-  const int64_t lb = static_cast<int64_t>(L) * B;
-  if (lb == 0) return 0;
-  const int64_t grid = grid_of(lb);
-  if (grid < 0) return static_cast<int>(cudaGetLastError());
-  stage1_general_global_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      ssa, pmom, dtau, btop, slope, fbeam, mur, lam0, gp, gm, lam, expd, y0p,
-      y0m, y1, zp, zm, n, nmom, sweeps, mode, thermal, beam, L, B, tab,
-      scratch);
-  return static_cast<int>(cudaGetLastError());
+  return launch(n, thermal, beam, ssa, pmom, dtau, btop, slope, fbeam, mur,
+                lam0, gp, gm, lam, expd, y0p, y0m, y1, zp, zm, nmom, sweeps,
+                mode, L, B, tab, K4Modes{1, 0, nullptr}, scratch, stream);
+}
+
+// As pyharp_stage1_general_huge_modes (stage1_general_huge.cu), for n > 64;
+// scratch holds pyharp_stage1_general_global_scratch(n, nm L B) floats.
+PYHARP_API int pyharp_stage1_general_global_modes(
+    int n, const float* ssa, const float* pmom, const float* dtau,
+    const float* fbeam, const float* mur, const float* lam0, float* gp,
+    float* gm, float* lam, float* expd, float* zp, float* zm, int nmom,
+    int sweeps, long long nm, long long G, long long L, long long B,
+    const long long* tabs, float* scratch, void* stream) {
+  return launch(n, 0, 1, ssa, pmom, dtau, nullptr, nullptr, fbeam, mur, lam0,
+                gp, gm, lam, expd, nullptr, nullptr, nullptr, zp, zm, nmom,
+                sweeps, 0, L, B, nullptr, K4Modes{nm, G, tabs}, scratch,
+                stream);
 }
 
 // Elements resident on an SM, by the occupancy calculator.

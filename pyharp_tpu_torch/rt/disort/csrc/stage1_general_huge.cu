@@ -23,17 +23,25 @@
 // a step goes by columns), one body for every N = 33..64 with N a run-time
 // argument, 2 elements a block of 64 threads.  An element keeps X and Y
 // (N x (N + 1) at an odd stride) in shared memory, 34.3 KB at N = 64, so
-// six elements an SM.  Every step of the big body runs over the lane's
-// rows in turn; the Cholesky keeps each row's pending pivot in the pivot
-// vector instead of a register; in the sweeps a lane carries a_rp and y_rp
-// of both its rows through the q loop, a_pq comes by a shuffle from the
-// lane and register of row q, and the row update runs as branches.  The
-// rotation's quotients and square roots take the fast paths behind the
-// same two range checks as the big body (general.cuh's rotation_checked).
-// chip_smoke.py phase 1 prints registers, stack and spills;
-// tests/test_torch_huge_k4.py models the body on the CPU.
+// six elements an SM: an element's time is its latency, so a launch must
+// bring many of them.  The radiances' modes m >= 1 come in one launch
+// (pyharp_stage1_general_huge_modes, general_huge.cuh's K4Modes: at nstr
+// 128 a mode has 128 elements of 1 x 16 x 8, 64 of the 132 SMs, and the
+// 127 modes fill the card some 20 times over).  Every step of the big body
+// runs over the lane's rows in turn; the Cholesky keeps each row's pending
+// pivot in the pivot vector instead of a register.  The sweeps
+// (general_huge.cuh's sweeps_rows<2>) keep to the chain of a rotation: a
+// lane carries a_rp, y_rp and the diagonal of both its rows through the q
+// loop, a_pq and a_qq come by shuffles, the rotation runs straight through
+// on the fast paths of its quotients and square roots (the range checks'
+// other path in a branch beside it), row q + 1's a_rp is shuffled before
+// the row work, the slots of the next rotation are loaded right after the
+// barrier, and the row updates are selects.  chip_smoke.py phase 1 prints
+// registers, stack and spills; tests/test_torch_huge_k4.py models the body
+// on the CPU; tools/wide_ab.py's part huge_cycles reads its cycles by phase
+// (-DPYHARP_BIG_PROFILE).
 
-#include "general.cuh"
+#include "general_huge.cuh"
 #include "huge.cuh"
 
 namespace {
@@ -42,79 +50,6 @@ constexpr int kElems = 2;                  // elements (warps) a block
 constexpr int kThreads = 32 * kElems;
 constexpr int kMinBlocks = 3;              // blocks an SM holds at N = 64
 constexpr int kRowsALane = 2;              // rows t and t + 32
-
-// The sweeps of an element on its warp, rotation by rotation in the
-// cyclic order of n, lane t on rows t and t + 32.  Entry (r, c) of A at
-// X[max][min]; at a fixed p the lane carries a_rp and y_rp of each of its
-// rows in registers through the q loop and stores them when it ends; a_pq
-// comes from row q's lane and register by a shuffle, a_qq from the
-// diagonal as the loop began, a_pp from the previous rotation's new_pp.
-// The copy of a_rq a lane reads was written at least one rotation before
-// (by its own other row or another lane), so one __syncwarp a rotation
-// orders it.
-__device__ __forceinline__ void sweeps2(float* X, float* Y, int ld, int n,
-                                        int sweeps, int t) {
-  for (int it = 0; it < sweeps; ++it) {
-    for (int p = 0; p + 1 < n; ++p) {
-      float app = X[p * ld + p];
-      float arp[kRowsALane];
-      float yrp[kRowsALane];
-      float dq[kRowsALane];              // the row's new a_rr, from (p, r)
-#pragma unroll
-      for (int h = 0; h < kRowsALane; ++h) {
-        const int r = t + 32 * h;
-        arp[h] = 0.0f;
-        yrp[h] = 0.0f;
-        dq[h] = 0.0f;
-        if (r < n) {
-          arp[h] = r == p ? 0.0f : (r > p ? X[r * ld + p] : X[p * ld + r]);
-          yrp[h] = Y[r * ld + p];
-        }
-      }
-      for (int q = p + 1; q < n; ++q) {
-        const float a0 = __shfl_sync(kBigFull, arp[0], q & 31);
-        const float a1 = __shfl_sync(kBigFull, arp[1], q & 31);
-        const float apq = q < 32 ? a0 : a1;
-        const float aqq = X[q * ld + q];
-        float c, s, new_pp, new_qq;
-        rotation_checked(app, apq, aqq, c, s, new_pp, new_qq);
-#pragma unroll
-        for (int h = 0; h < kRowsALane; ++h) {
-          const int r = t + 32 * h;
-          if (r >= n) continue;
-          if (r != p && r != q) {
-            float* aq = X + (r > q ? r * ld + q : q * ld + r);
-            const float arq = *aq;
-            const float nrp = c * arp[h] - s * arq;
-            *aq = s * arp[h] + c * arq;
-            arp[h] = nrp;
-          } else if (r == q) {
-            arp[h] = 0.0f;
-            dq[h] = new_qq;
-          }
-          const float vrq = Y[r * ld + q];
-          Y[r * ld + q] = s * yrp[h] + c * vrq;
-          yrp[h] = c * yrp[h] - s * vrq;
-        }
-        app = new_pp;
-        __syncwarp();
-      }
-#pragma unroll
-      for (int h = 0; h < kRowsALane; ++h) {
-        const int r = t + 32 * h;
-        if (r >= n) continue;
-        if (r == p) {
-          X[p * ld + p] = app;
-        } else {
-          X[r > p ? r * ld + p : p * ld + r] = arp[h];
-        }
-        if (r > p) X[r * ld + r] = dq[h];
-        Y[r * ld + p] = yrp[h];
-      }
-      __syncwarp();
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 stage1_general_huge_kernel(const float* __restrict__ ssa_in,
@@ -134,18 +69,26 @@ stage1_general_huge_kernel(const float* __restrict__ ssa_in,
                            float* __restrict__ y1_out,
                            float* __restrict__ zp_out,
                            float* __restrict__ zm_out, int n, int nmom,
-                           int sweeps, int mode, int thermal, int beam,
+                           int sweeps, int mode0, int thermal, int beam,
                            int64_t L, int64_t B,
-                           const float* __restrict__ tab) {
+                           const float* __restrict__ tab0, K4Modes modes) {
   extern __shared__ __align__(16) float smem[];
+  BIG_PROF_START();
   const K4Geom G(n);
   const int64_t lb = L * B;
   const int t = static_cast<int>(threadIdx.x) & 31;   // rows t, t + 32
   const int el = static_cast<int>(threadIdx.x) >> 5;
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * kElems + el;
-  if (e >= lb) return;                 // a whole warp
-  const int64_t layer = e / B;
-  const int64_t b = e - layer * B;
+  const int64_t ef = static_cast<int64_t>(blockIdx.x) * kElems + el;
+  if (ef >= modes.nm * lb) return;     // a whole warp
+  const K4Element E(ef, lb, B, modes, tab0, mode0, lam0_in);
+  const int64_t e = E.e;               // the inputs' (layer, column)
+  const int64_t layer = E.layer;
+  const int64_t b = E.b;
+  const int64_t o = E.o;               // the outputs' element and stride
+  const int64_t os = E.os;
+  const int mode = E.mode;
+  const float* tab = E.tab;
+  lam0_in = E.lam0;
   float* X = smem + el * G.floats;     // Uhat, Lc^T; A; Vf; LU; Uf
   float* Y = X + G.y;                  // Vhat, VL; Y; D, Sg; Vf
   float* gs = X + G.gs;
@@ -234,6 +177,7 @@ stage1_general_huge_kernel(const float* __restrict__ ssa_in,
     }
   }
   __syncwarp();
+  BIG_PROF_MARK(0);
 
   // Vhat by columns into Y (the lane's columns), then VL = Vhat Lc in
   // place, the lane's rows
@@ -279,7 +223,8 @@ stage1_general_huge_kernel(const float* __restrict__ ssa_in,
   }
   __syncwarp();
 
-  sweeps2(X, Y, ld, n, sweeps, t);
+  BIG_PROF_MARK(1);
+  sweeps_rows<kRowsALane, true>(X, Y, ld, n, sweeps, t);
 
   // the eigenvalues; D = Lc Y / sqrt(mu w) in place over Y, a column at a
   // time
@@ -305,6 +250,7 @@ stage1_general_huge_kernel(const float* __restrict__ ssa_in,
     }
   }
   __syncwarp();
+  BIG_PROF_MARK(4);
 
   // Vf by columns into X; S = -(Vf D) / (mu lam), gp and gm normalised per
   // mode, Sg = gp + gm in place over D
@@ -344,17 +290,18 @@ stage1_general_huge_kernel(const float* __restrict__ ssa_in,
       if (r < n) {
         const float gpn = gpk[h] / scale;
         const float gmn = gmk[h] / scale;
-        gp_out[static_cast<int64_t>(r * n + k) * lb + e] = gpn;
-        gm_out[static_cast<int64_t>(r * n + k) * lb + e] = gmn;
+        gp_out[static_cast<int64_t>(r * n + k) * os + o] = gpn;
+        gm_out[static_cast<int64_t>(r * n + k) * os + o] = gmn;
         Y[r * ld + k] = gpn + gmn;
       }
     }
     if (t == (k & 31)) {
-      lam_out[k * lb + e] = lk;
-      expd_out[k * lb + e] = expf(-lk * dtau);
+      lam_out[k * os + o] = lk;
+      expd_out[k * os + o] = expf(-lk * dtau);
     }
   }
   __syncwarp();
+  BIG_PROF_MARK(5);
 
   bool have_uf = false;
   if (beam) {
@@ -439,12 +386,13 @@ stage1_general_huge_kernel(const float* __restrict__ ssa_in,
         float uz = X[r * ld] * vb[0];
         for (int j = 1; j < n; ++j) uz = uz + X[r * ld + j] * vb[j * ld];
         const float zd = -mur * (uz - qs[h]) / mu[r];
-        zp_out[r * lb + e] = 0.5f * (zs[h] + zd);
-        zm_out[r * lb + e] = 0.5f * (zs[h] - zd);
+        zp_out[r * os + o] = 0.5f * (zs[h] + zd);
+        zm_out[r * os + o] = 0.5f * (zs[h] - zd);
       }
     }
     __syncwarp();
   }
+  BIG_PROF_MARK(6);
 
   if (thermal) {
     // U h = (1 - ssa) 1 with Uf in X, then V y0d = 2 mu slope h with Vf
@@ -467,7 +415,7 @@ stage1_general_huge_kernel(const float* __restrict__ ssa_in,
       if (r < n) {
         hv[h] = X[r * ld + n];
         const float y1 = slope * hv[h];
-        y1_out[r * lb + e] = y1;
+        y1_out[r * os + o] = y1;
         Y[r * ld + n] = (2.0f * mu[r]) * y1;
       }
     }
@@ -481,11 +429,13 @@ stage1_general_huge_kernel(const float* __restrict__ ssa_in,
       const int r = t + 32 * h;
       if (r < n) {
         const float y0d = Y[r * ld + n];
-        y0p_out[r * lb + e] = btop * hv[h] + 0.5f * y0d;
-        y0m_out[r * lb + e] = btop * hv[h] - 0.5f * y0d;
+        y0p_out[r * os + o] = btop * hv[h] + 0.5f * y0d;
+        y0m_out[r * os + o] = btop * hv[h] - 0.5f * y0d;
       }
     }
   }
+  BIG_PROF_MARK(7);
+  BIG_PROF_FLUSH();
 }
 
 int smem_bytes(int n) {
@@ -500,6 +450,28 @@ cudaError_t allow_smem(int n) {
                               smem_bytes(n));
 }
 
+// The launch over modes.nm modes of L B elements each.
+int launch(int n, int thermal, int beam, const float* ssa, const float* pmom,
+           const float* dtau, const float* btop, const float* slope,
+           const float* fbeam, const float* mur, const float* lam0, float* gp,
+           float* gm, float* lam, float* expd, float* y0p, float* y0m,
+           float* y1, float* zp, float* zm, int nmom, int sweeps, int mode,
+           int64_t L, int64_t B, const float* tab, K4Modes modes,
+           void* stream) {
+  if (n < kHugeMinN || n > kHugeMaxN) return PYHARP_UNSUPPORTED_N;
+  const int64_t elems = modes.nm * L * B;
+  if (elems == 0) return 0;
+  const cudaError_t err = allow_smem(n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto grid = static_cast<unsigned>((elems + kElems - 1) / kElems);
+  stage1_general_huge_kernel<<<grid, kThreads, smem_bytes(n),
+                               static_cast<cudaStream_t>(stream)>>>(
+      ssa, pmom, dtau, btop, slope, fbeam, mur, lam0, gp, gm, lam, expd, y0p,
+      y0m, y1, zp, zm, n, nmom, sweeps, mode, thermal, beam, L, B, tab,
+      modes);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // As pyharp_stage1_general (stage1_general.cu), for n = 33..64.
@@ -510,17 +482,23 @@ PYHARP_API int pyharp_stage1_general_huge(
     float* gm, float* lam, float* expd, float* y0p, float* y0m, float* y1,
     float* zp, float* zm, int nmom, int sweeps, int mode, long long L,
     long long B, const float* tab, void* stream) {
-  if (n < kHugeMinN || n > kHugeMaxN) return PYHARP_UNSUPPORTED_N;
-  const int64_t lb = static_cast<int64_t>(L) * B;
-  if (lb == 0) return 0;
-  const cudaError_t err = allow_smem(n);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto grid = static_cast<unsigned>((lb + kElems - 1) / kElems);
-  stage1_general_huge_kernel<<<grid, kThreads, smem_bytes(n),
-                               static_cast<cudaStream_t>(stream)>>>(
-      ssa, pmom, dtau, btop, slope, fbeam, mur, lam0, gp, gm, lam, expd, y0p,
-      y0m, y1, zp, zm, n, nmom, sweeps, mode, thermal, beam, L, B, tab);
-  return static_cast<int>(cudaGetLastError());
+  return launch(n, thermal, beam, ssa, pmom, dtau, btop, slope, fbeam, mur,
+                lam0, gp, gm, lam, expd, y0p, y0m, y1, zp, zm, nmom, sweeps,
+                mode, L, B, tab, K4Modes{1, 0, nullptr}, stream);
+}
+
+// K4 at the nm modes of a radiance solve in one launch, n = 33..64: no
+// thermal source, a beam; `tabs` the modes' table pointers and m (K4Modes),
+// lam0 (nm, G, B); gp, gm (n, n, L, nm, B), lam, expd, zp, zm (n, L, nm, B).
+PYHARP_API int pyharp_stage1_general_huge_modes(
+    int n, const float* ssa, const float* pmom, const float* dtau,
+    const float* fbeam, const float* mur, const float* lam0, float* gp,
+    float* gm, float* lam, float* expd, float* zp, float* zm, int nmom,
+    int sweeps, long long nm, long long G, long long L, long long B,
+    const long long* tabs, void* stream) {
+  return launch(n, 0, 1, ssa, pmom, dtau, nullptr, nullptr, fbeam, mur, lam0,
+                gp, gm, lam, expd, nullptr, nullptr, nullptr, zp, zm, nmom,
+                sweeps, 0, L, B, nullptr, K4Modes{nm, G, tabs}, stream);
 }
 
 // Elements resident on an SM at n, by the occupancy calculator.
@@ -533,3 +511,5 @@ PYHARP_API int pyharp_stage1_general_huge_occupancy(int n) {
     return -1;
   return blocks * kElems;
 }
+
+BIG_PROF_READER(stage1_general_huge)

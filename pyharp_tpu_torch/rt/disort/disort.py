@@ -21,10 +21,11 @@ The flux solve runs the kernels of ``kernels.py``:
   tensor code -- the JAX package's gate (``disort.py:447``).
 
 The radiances solve m = 0 the same way but with K2 then K5 at every N,
-since the sweeps need the coefficients (a, b); the modes m >= 1 run K4 once
-per mode and one K2 and one K5 for all of them, the modes folded into the
-batch axis.  Which functions run, the kernels or their plain versions, is
-decided before any launch by ``kernels.route``.
+since the sweeps need the coefficients (a, b); the modes m >= 1 run one K2
+and one K5 for all of them, the modes folded into the batch axis, and K4
+once for all of them at N > 32 (once per mode at N <= 32).  Which
+functions run, the kernels or their plain versions, is decided before any
+launch by ``kernels.route``.
 
 Everything between the kernels is plain tensor code, as it is XLA code in
 the JAX package (``intensity.py`` holds the radiance sweeps).  Covered:
@@ -547,10 +548,12 @@ class Disort:
         These modes have no thermal source, no incident radiation and no
         surface reflection (a Lambertian surface reflects only m = 0), so
         their BVP has zero albedo, zero ``ftop`` and ``bot_rhs = -pbot_p``
-        on the m = 0 quadrature: K2's and K5's contract.  Stage 1 runs once
-        per mode (K4 with the mode's tables, no thermal source, the beam
-        source Lam_l^m(mu0) and prefactor 2/(4 pi)); the BVP runs once for
-        all modes, folded into the batch axis as B' = (nstr - 1) B.
+        on the m = 0 quadrature: K2's and K5's contract.  Stage 1 runs at
+        every mode (K4 with the mode's tables, no thermal source, the beam
+        source Lam_l^m(mu0) and prefactor 2/(4 pi)): at N > 32 one launch
+        over all modes, at N <= 32 one launch a mode
+        (``kernels.stage1_general_modes``); the BVP runs once for all
+        modes, folded into the batch axis as B' = (nstr - 1) B.
 
         Without a beam, or without phase moments, every source of these
         modes vanishes and so do their radiances: returns None.  Else a
@@ -568,22 +571,18 @@ class Disort:
         mur = self._beam_cosine(pr)
         zero = torch.zeros_like(pr["ssa_s"])
         G = ang0.lam_tables.shape[0]
-        lam0s = [lepoly(pr["umu0"], m, G - 1).contiguous() for m in ms]
+        lam0 = torch.stack([lepoly(pr["umu0"], m, G - 1) for m in ms])
         angs = [self._angles(m) for m in ms]
-        if k.route == "torch":
-            # the plain version over all modes in one pass (the same bits)
-            outs = kernels.stage1_general_modes_plain(
-                pr["ssa_s"], pr["pmom_s"], pr["dtau"], angs,
-                fbeam=pr["fbeam"], mur=mur, lam0s=lam0s)
-        else:
-            outs = [k.stage1_general(pr["ssa_s"], pr["pmom_s"], pr["dtau"],
-                                     zero, zero, a, thermal=False,
-                                     fbeam=pr["fbeam"], mur=mur, lam0=l0)
-                    for a, l0 in zip(angs, lam0s)]
+        s1 = (pr["ssa_s"], pr["pmom_s"], pr["dtau"], angs)
+        kw = dict(fbeam=pr["fbeam"], mur=mur, lam0s=lam0)
         # (..., L, nm, B): the modes next to the batch axis, so that the
         # folded (..., L, nm * B) is a view
-        gp, gm, lam, expd, zp, zm = (torch.stack([o[i] for o in outs], dim=-2)
-                                     for i in (0, 1, 2, 3, 7, 8))
+        if k.route == "torch":
+            # the plain version over all modes in one pass (the same bits)
+            gp, gm, lam, expd, zp, zm = kernels._stack_modes(
+                kernels.stage1_general_modes_plain(*s1, **kw))
+        else:
+            gp, gm, lam, expd, zp, zm = kernels.stage1_general_modes(*s1, **kw)
 
         def fold(x):
             return x.reshape(x.shape[:-2] + (nm * B,))
@@ -606,7 +605,7 @@ class Disort:
         return dict(ms=ms, gp=gp.movedim(-2, 0), gm=gm.movedim(-2, 0),
                     lam=lam.movedim(-2, 0), expd=expd.movedim(-2, 0),
                     zp=zp.movedim(-2, 0), zm=zm.movedim(-2, 0), a=lead(a),
-                    b=lead(b), lam0=torch.stack(lam0s), mur=mur,
+                    b=lead(b), lam0=lam0, mur=mur,
                     fold=(fgp, fgm, fexpd, dblk, alb), N=N)
 
     def _user_taus(self, pr: dict):

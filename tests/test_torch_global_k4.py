@@ -5,13 +5,10 @@ and of the plain ``kernels.stage1_general_plain``.
 The body is the body of N = 33..64 (``tests/test_torch_huge_k4.py``) with
 lane t on the rows t + 32 j for any number of row sets, its matrices and
 the values the huge body carries in registers in a slab of global scratch.
-In the sweeps row r's a_rp, y_rp and new a_rr are carried in ``arp[r]``,
-``yrp[r]`` and ``dq[r]`` (registers of row r's lane up to 8 row sets, its
-slab's vectors above), which only row r's lane reads and writes; a_pq is
-the value lane q mod 32 holds of its own row q, shuffled; a rotation's row
-updates touch one slot (r, q) a row, so the rows never meet, a lane may
-load all its slots before it stores any, and ``global_sweeps`` runs the
-rows of every lane and set side by side.
+Up to 8 row sets (N <= 256) its sweeps are the huge body's
+(``sweeps_rows<R>`` of ``csrc/general_huge.cuh``, the rows' carried
+values in registers): ``global_sweeps`` runs the huge test's lane model
+``rows_sweeps`` at R = ceil(N / 32).
 ``test_global_sweeps_are_jacobi_rotate`` holds it to ``jacobi.jacobi_eigh``
 at N = 65, 100 and 129, and ``test_global_body_is_the_plain_k4`` runs the
 whole body (``k4_global``: the lanes' rows of each step at once, each
@@ -32,6 +29,7 @@ from pyharp_tpu_torch.rt.disort.legendre import lepoly
 from pyharp_tpu_torch.rt.disort.solver import make_static_angles
 
 from .test_torch_global_bvp import warp_lu_solve_global
+from .test_torch_huge_k4 import rows_sweeps
 from .test_torch_wide_k4_team import (_inputs, nan_max, rotation_scalars,
                                       sqrt32)
 
@@ -50,57 +48,13 @@ def one_thread():
 
 
 def global_sweeps(A0, n: int, sweeps: int):
-    """The body's sweeps on the symmetric ``(n, n, E)`` matrix ``A0``:
-    ``(X, Y)``, X holding A's lower triangle (its upper triangle untouched,
-    here zero) and Y the eigenvectors by rows.  ``arp``, ``yrp`` and ``dq``
-    ``(n, E)`` are the rows' carried values in the slab, row r's on lane
-    r mod 32."""
-    E = A0.shape[-1]
-    X = np.zeros((n, n, E), F32)
-    for i in range(n):
-        X[i, :i + 1] = A0[i, :i + 1]
-    Y = np.zeros((n, n, E), F32)
-    for i in range(n):
-        Y[i, i] = 1.0
-    r = np.arange(n)
-    zero = np.zeros((n, E), F32)
-    for _ in range(sweeps):
-        for p in range(n - 1):
-            app = X[p, p].copy()
-            lo = np.minimum(r, p)
-            arp = np.where((r == p)[:, None], zero,
-                           np.where((r > p)[:, None], X[np.maximum(r, p), p],
-                                    X[p, lo]))
-            yrp = Y[:, p].copy()
-            dq = zero.copy()
-            for q in range(p + 1, n):
-                own = (q % LANES) + LANES * (q // LANES)   # lane q % 32's row
-                apq = arp[own].copy()                      # shuffled
-                aqq = X[q, q].copy()
-                with np.errstate(over="ignore"):   # tau^2 past float32
-                    c, s, new_pp, new_qq = rotation_scalars(app, apq, aqq)
-                gen = (r != p) & (r != q)
-                hi, lo_ = np.maximum(r, q), np.minimum(r, q)
-                arq = X[hi, lo_]
-                nrp = c * arp - s * arq
-                nrq = s * arp + c * arq
-                X[hi[gen], lo_[gen]] = nrq[gen]
-                isq = (r == q)[:, None]
-                arp = np.where(gen[:, None], nrp, np.where(isq, zero, arp))
-                dq = np.where(isq, new_qq, dq)
-                vrq = Y[:, q].copy()
-                Y[:, q] = s * yrp + c * vrq
-                yrp = c * yrp - s * vrq
-                app = new_pp
-            for row in range(n):                     # column p, once
-                if row == p:
-                    X[p, p] = app
-                else:
-                    X[max(row, p), min(row, p)] = arp[row]
-                if row > p:
-                    X[row, row] = dq[row]
-                Y[row, p] = yrp[row]
-    return X, Y
+    """The body's sweeps on the symmetric ``(n, n, E)`` matrix ``A0`` at
+    65 <= n <= 256: ``sweeps_rows<R>`` over R = ceil(n / 32) row sets,
+    the carried values in registers (``tests/test_torch_huge_k4.py``'s
+    ``rows_sweeps``).  ``(X, Y)``, X holding A's lower triangle and Y the
+    eigenvectors by rows."""
+    assert 64 < n <= 32 * 8
+    return rows_sweeps(A0, n, sweeps, (n + LANES - 1) // LANES)
 
 
 def k4_global(ssa, pmom, dtau, btop, slope, ang, *, thermal, fbeam=None,
@@ -279,8 +233,8 @@ def k4_global(ssa, pmom, dtau, btop, slope, ang, *, thermal, fbeam=None,
 
 @pytest.mark.parametrize("n, sweeps", [(65, 2), (100, 1), (129, 1)])
 def test_global_sweeps_are_jacobi_rotate(n, sweeps):
-    """The modelled sweeps, rows t + 32 j a lane over 3, 4 and 5 sets,
-    pivots carried in the slab and shuffled, give ``jacobi_eigh``'s bits
+    """The modelled sweeps, rows t + 32 j a lane over 3, 4 and 5 sets in
+    registers, each rotation's slots loaded ahead of it, give ``jacobi_eigh``'s bits
     (its ``_rotate`` in the cyclic order) on drawn symmetric float32
     matrices with a repeated diagonal entry and zero off-diagonal ones
     across the row sets (one or two sweeps: each rotation is the same

@@ -6,14 +6,22 @@ The body is the body of N = 17..32 (``tests/test_torch_big_k4.py``) with
 two rows a lane: lane t owns rows t and t + 32 (columns t and t + 32 where
 a step goes by columns), and every step runs over the lane's rows in
 turn, each entry's operations as before; the Cholesky keeps each row's
-pending pivot in the pivot vector.  In the sweeps the lane carries a_rp
-and y_rp of both its rows through the q loop; a_pq is row q's register on
-lane q mod 32, shuffled; a rotation's row updates touch one slot (r, q) a
-row, so the two rows of a lane never meet.  ``huge_sweeps`` models that
-lane by lane, the 32 lanes and two registers as arrays;
-``test_huge_sweeps_are_jacobi_rotate`` holds it to ``jacobi.jacobi_eigh``
-over whole sweeps, and ``test_huge_body_is_the_plain_k4`` runs the big
-body's model with these sweeps at nstr 66, 96 and 128.
+pending pivot in the pivot vector.  The sweeps are ``sweeps_rows<2>`` of
+``csrc/general_huge.cuh``: at a fixed p the lane carries a_rp, y_rp and
+the diagonal of both its rows; a rotation loads its slots (r, q) and y_rq
+right after the previous rotation's barrier, takes a_qq and a_pq by
+shuffles (a_pq from row q + 1's new a_rp, formed first in the rotation
+before), updates y_r,q-1 of the rotation before beside its own (the first
+rotation of a p loop after the identity), and forms every row's new a_rp
+and a_rq by selects (the huge body's rows that update no slot store into
+X's column n, which the sweeps never read and the model leaves out).
+``rows_sweeps`` models that schedule lane by lane,
+the 32 lanes and R registers as arrays, each load taken when the kernel
+issues it; ``test_huge_sweeps_are_jacobi_rotate`` holds it to
+``jacobi.jacobi_eigh`` over whole sweeps, and
+``test_huge_body_is_the_plain_k4`` runs the big body's model with these
+sweeps at nstr 66, 96 and 128.  ``tests/test_torch_global_k4.py`` runs
+``rows_sweeps`` at R = 3..5, as the body of N > 64 runs ``sweeps_rows``.
 """
 
 from __future__ import annotations
@@ -45,11 +53,13 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def huge_sweeps(A0, n: int, sweeps: int):
-    """The body's sweeps on the symmetric ``(n, n, E)`` matrix ``A0``:
-    ``(X, Y)``, X holding A's lower triangle (its upper triangle untouched,
-    here zero) and Y the eigenvectors by rows.  ``arp[h]``, ``yrp[h]`` and
-    ``dq[h]`` are the registers of row t + 32 h on lane t, ``(32, E)``."""
+def rows_sweeps(A0, n: int, sweeps: int, R: int = ROWS):
+    """``sweeps_rows<R>``'s sweeps on the symmetric ``(n, n, E)`` matrix
+    ``A0`` (n <= 32 R): ``(X, Y)``, X holding A's lower triangle (its upper
+    triangle untouched, here zero) and Y the eigenvectors by rows.
+    ``arp[h]``, ``yrp[h]``, ``dq[h]``, ``dg[h]`` and ``vp[h]`` are the
+    registers of row t + 32 h on lane t, ``(32, E)``; a shuffle from lane
+    l of register h is ``pick(x, h)[l]``."""
     E = A0.shape[-1]
     X = np.zeros((n, n, E), F32)
     for i in range(n):
@@ -58,49 +68,67 @@ def huge_sweeps(A0, n: int, sweeps: int):
     for i in range(n):
         Y[i, i] = 1.0
     t = np.arange(LANES)
-    rows = [t + LANES * h for h in range(ROWS)]
-    valid = [r < n for r in rows]
+    rows = [t + LANES * h for h in range(R)]
+    live = [r < n for r in rows]
     rc = [np.minimum(r, n - 1) for r in rows]           # clipped indices
     zero = np.zeros((LANES, E), F32)
+
+    def slot(r, c):
+        return np.maximum(r, c), np.minimum(r, c)
+
+    def pick(x, h):
+        return x[h] if h < R else x[0]
+
     for _ in range(sweeps):
         for p in range(n - 1):
-            app = X[p, p].copy()
-            arp, yrp, dq = [], [], []
-            for h in range(ROWS):
-                r = rc[h]
-                a = np.where((r > p)[:, None], X[r, p],
-                             X[p, np.minimum(r, p)])
-                arp.append(np.where((valid[h] & (rows[h] != p))[:, None], a,
-                                    zero))
-                yrp.append(np.where(valid[h][:, None], Y[r, p], zero))
+            arp, yrp, dq, dg, vp = [], [], [], [], []
+            for h in range(R):
+                r, ok = rc[h], live[h][:, None]
+                arp.append(np.where(ok & (rows[h] != p)[:, None],
+                                    X[slot(r, p)], zero))
+                yrp.append(np.where(ok, Y[r, p], zero))
+                dg.append(np.where(ok, X[r, r], zero))
                 dq.append(zero.copy())
+                vp.append(zero.copy())
+            app = X[p, p].copy()
+            apq = pick(arp, (p + 1) // LANES)[(p + 1) % LANES].copy()
+            cp, sp = np.ones(E, F32), np.zeros(E, F32)    # the identity
             for q in range(p + 1, n):
-                apq = arp[q // LANES][q % LANES].copy()    # shuffled
-                aqq = X[q, q].copy()
+                # the loads after the barrier, then a_qq's shuffle
+                arq = [np.where(live[h][:, None], X[slot(rc[h], q)], zero)
+                       for h in range(R)]
+                vrq = [np.where(live[h][:, None], Y[rc[h], q], zero)
+                       for h in range(R)]
+                aqq = pick(dg, q // LANES)[q % LANES].copy()
+                for h in range(R):           # the previous rotation's y_rq
+                    r, ok = rc[h], live[h]
+                    y = yrp[h]
+                    Y[r[ok], q - 1] = (sp * y + cp * vp[h])[ok]
+                    yrp[h] = cp * y - sp * vp[h]
                 with np.errstate(over="ignore"):   # tau^2 past float32
                     c, s, new_pp, new_qq = rotation_scalars(app, apq, aqq)
-                for h in range(ROWS):
-                    r, ok = rc[h], valid[h]
-                    gen = ok & (rows[h] != p) & (rows[h] != q)
-                    hi, lo = np.maximum(r, q), np.minimum(r, q)
-                    arq = X[hi, lo]
-                    nrp = c * arp[h] - s * arq
-                    nrq = s * arp[h] + c * arq
-                    X[hi[gen], lo[gen]] = nrq[gen]
-                    isq = ok & (rows[h] == q)
-                    arp[h] = np.where(gen[:, None], nrp,
-                                      np.where(isq[:, None], zero, arp[h]))
-                    dq[h] = np.where(isq[:, None], new_qq, dq[h])
-                    vrq = Y[r, q]
-                    Y[r[ok], q] = (s * yrp[h] + c * vrq)[ok]
-                    yrp[h] = np.where(ok[:, None], c * yrp[h] - s * vrq,
-                                      yrp[h])
-                app = new_pp
-            for h in range(ROWS):                     # column p, once
+                nrp = [c * arp[h] - s * arq[h] for h in range(R)]
+                nrq = [s * arp[h] + c * arq[h] for h in range(R)]
+                apq_next = pick(nrp, (q + 1) // LANES)[(q + 1) % LANES].copy()
+                for h in range(R):
+                    gen = live[h] & (rows[h] != p) & (rows[h] != q)
+                    hi, lo = slot(rc[h], q)
+                    X[hi[gen], lo[gen]] = nrq[h][gen]
+                    isq = (rows[h] == q)[:, None]
+                    arp[h] = np.where(gen[:, None], nrp[h],
+                                      np.where(isq, zero, arp[h]))
+                    dq[h] = np.where(isq, new_qq, dq[h])
+                    vp[h] = vrq[h]
+                cp, sp, app, apq = c, s, new_pp, apq_next
+            for h in range(R):                # the last y_rq, column p
+                y = yrp[h]
+                ylast = sp * y + cp * vp[h]
+                yrp[h] = cp * y - sp * vp[h]
                 for lane in range(LANES):
                     r = rows[h][lane]
                     if r >= n:
                         continue
+                    Y[r, n - 1] = ylast[lane]
                     if r == p:
                         X[p, p] = app
                     else:
@@ -111,12 +139,18 @@ def huge_sweeps(A0, n: int, sweeps: int):
     return X, Y
 
 
+def huge_sweeps(A0, n: int, sweeps: int):
+    """The huge body's sweeps: :func:`rows_sweeps` with two rows a lane."""
+    return rows_sweeps(A0, n, sweeps, ROWS)
+
+
 @pytest.mark.parametrize("n", [33, 48, 64])
 def test_huge_sweeps_are_jacobi_rotate(n):
-    """Eight modelled sweeps, two rows a lane, pivots carried by register
-    and shuffle, give ``jacobi_eigh``'s bits (its ``_rotate`` in the cyclic
-    order) on drawn symmetric float32 matrices with a repeated diagonal
-    entry and zero off-diagonal ones across the two row sets."""
+    """Eight modelled sweeps, two rows a lane, each rotation's slots loaded
+    ahead of it, a_pq and a_qq by shuffles, the y updates a rotation late,
+    give ``jacobi_eigh``'s bits (its ``_rotate`` in the cyclic order) on
+    drawn symmetric float32 matrices with a repeated diagonal entry and
+    zero off-diagonal ones across the two row sets."""
     rng = np.random.default_rng(n)
     E = 2
     M = rng.standard_normal((n, n, E)).astype(F32)

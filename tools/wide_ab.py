@@ -1,7 +1,8 @@
 """Time K1, K4 and K2 at N = 16 (nstr 32), K5 at N = 9..16, K2 at N = 5..7,
-K1, K4 and K2 at N = 17..32, K1, K4, K2 and K5 at N = 33..64, the solve
-steps they run in, and the plain LU against another tree's, in turns, on
-the card; K1's, K4's and K2's cycles by phase at N = 17..32.
+K1, K4 and K2 at N = 17..32, K1, K4, K2 and K5 at N = 33..64, K4 over the
+radiance modes at N = 128, the solve steps they run in, and the plain LU
+against another tree's, in turns, on the card; K1's, K4's and K2's cycles
+by phase at N = 17..32, K4's at N = 64.
 
     git archive <commit> pyharp_tpu_torch/rt/disort | tar -x -C _checkout/parent
     python3 tools/wide_ab.py --parent _checkout/parent
@@ -60,11 +61,35 @@ times the tool against itself.  Each part times its calls over
   (``kernels.root_check``).
 - ``huge``, as ``big`` at N = 33..64 (only ``HUGE_SOURCES`` built), on
   the full-width inputs of ``chip_smoke.py`` phase 22 at nstr 128:
-  aerosol_16str_beam's configuration (its first 25 waves x 128 x 40), the
-  isotropic thermal (8 x 512 x 20) and beam (the first 125 of 500 waves x
-  64 x 20) solves and the radiances (2 x 16 x 10), K5 beside K2 on each;
-  where the parent has no bodies of N = 33..64, this tree's library is
-  timed against itself in turns.
+  aerosol_16str_beam's configuration (its first 25 waves x 128 x 40; K4
+  also without its Jacobi sweeps, so that the difference is the sweeps'
+  time), the isotropic thermal (8 x 512 x 20) and beam (the first 125 of
+  500 waves x 64 x 20) solves and the radiances (2 x 16 x 10: K4 over the
+  127 modes m >= 1, by a launch a mode where the library has no launch
+  over modes, the parent's loop, else by that one launch, checked
+  bit-equal), K5 beside K2 on each; where the parent has no bodies of N =
+  33..64, this tree's library is timed against itself in turns.
+- ``huge_cycles``: K4 at N = 33..64 of this tree and of the parent (or of
+  ``--parent-profile``, a tree whose body carries the marks) built with
+  ``PYHARP_BIG_PROFILE``, once each on the aerosol inputs at nstr 128,
+  with and without a thermal source: the ``clock64()`` cycles of each
+  phase (``K4_HUGE_PHASES``), as ``big_cycles``.
+- ``k4_trees``: K4's bodies at N > 32 (only ``csrc/stage1_general_huge.cu``
+  and ``csrc/stage1_general_global.cu`` built) of the parent, of the trees
+  of ``--trees`` (``name=dir,...``: variants of this tree's sources) and of
+  this tree, checked bit-equal to one another, then timed in turns (the
+  trees in order, then in reverse): K4 on the inputs of ``chip_smoke.py``
+  phase 22's aerosol path (its first 10 waves x 128 x 40 at nstr 128) with
+  and without its Jacobi sweeps, over the radiance modes at nstr 128 (1 x
+  16 x 8), on phase 23's aerosol path (1 wave x 128 x 10 layers at nstr
+  256) with and without its sweeps, and over the radiance modes at nstr
+  256 (1 x 4 x 4; not the parent's loop of 255 launches, timed once
+  alone).  A tree without the launch over modes runs a launch a mode.
+- ``global_modes``: K4 at N > 64 (only ``csrc/stage1_general_global.cu``
+  built) over the 255 modes m >= 1 of the radiances at nstr 256 (1 x 4 x
+  4, one wave, as ``chip_smoke.py`` phase 23 cuts them), the parent's
+  launch a mode against this tree's one launch, checked bit-equal, in the
+  same order (one call a turn).
 - ``big_cycles``: K1, K4 and K2 at N = 17..32 of this tree and of the
   parent (where its sources carry the marks) built with
   ``PYHARP_BIG_PROFILE``, once each on the aerosol inputs at nstr 64 and
@@ -95,17 +120,24 @@ sys.path.insert(0, str(REPO))
 
 DISORT = Path("pyharp_tpu_torch/rt/disort")
 PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu", "big", "big_cycles",
-         "huge")
+         "huge", "huge_cycles", "global_modes", "k4_trees")
 # the parts that time the whole libraries (the others build the bodies of
 # N = 17..32 or 33..64 alone)
 FULL_PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu")
 BIG_SOURCES = ("stage1_isotropic_big.cu", "stage1_general_big.cu",
                "bvp_forward_big.cu", "bvp_backward_big.cu")
 HUGE_SOURCES = tuple(s.replace("_big", "_huge") for s in BIG_SOURCES)
+GLOBAL_K4 = ("stage1_general_global.cu",)
+K4_WIDE = ("stage1_general_huge.cu", "stage1_general_global.cu")
 # the phases of BIG_PROF_MARK in the two bodies
 K4_PHASES = ("moments, contractions and Cholesky", "K = Lc^T Vhat Lc",
              "sweeps", "D and the eigenvectors", "beam particular",
              "thermal LUs")
+# the phases of BIG_PROF_MARK in K4's body of N = 33..64
+K4_HUGE_PHASES = ("moments, contractions and Cholesky", "K = Lc^T Vhat Lc",
+                  "sweeps: the chain to the next a_pq (and the p loops)",
+                  "sweeps: row work and barrier", "D and the eigenvectors",
+                  "gp, gm", "beam particular", "thermal LUs")
 K2_PHASES = ("staging", "block build", "swaps", "elimination",
              "back substitution", "stores", "carry")
 K1_PHASES = ("table staging", "half choice and bisection", "Newton",
@@ -203,10 +235,39 @@ HUGE_PATHS = ("aerosol_25x128x40_nstr128", "iso_thermal_8x512x20_nstr128",
               "iso_beam_125x64x20_nstr128", "radiances_2x16x10_nstr128")
 
 
+def modes_call(ds, pr):
+    """K4 over the modes m >= 1 of a radiance solve on its inputs ``pr``,
+    stacked as the radiances take them: one launch over every mode
+    (``kernels.stage1_general_modes``) where the library in use has it
+    (this tree at N > 32), else a launch a mode (the parent's loop, and
+    every tree at N <= 32)."""
+    import torch
+
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from pyharp_tpu_torch.rt.disort.legendre import lepoly
+
+    ms = range(1, ds.nstr)
+    N = ds.nstr // 2
+    angs = [ds._angles(m) for m in ms]
+    G = ds._ang0.lam_tables.shape[0]
+    lam0 = torch.stack([lepoly(pr["umu0"], m, G - 1) for m in ms])
+    s4 = (pr["ssa_s"], pr["pmom_s"], pr["dtau"])
+    kw = dict(fbeam=pr["fbeam"], mur=ds._beam_cosine(pr))
+    zero = torch.zeros_like(pr["ssa_s"])
+    entry = f"pyharp_stage1_general{K._body(N)}_modes"
+
+    def fn():
+        if N <= K.BIG_MAX_N or hasattr(K._library.lib, entry):
+            return K.stage1_general_modes(*s4, angs, lam0s=lam0, **kw)
+        return K._stack_modes([K.stage1_general(*s4, zero, zero, a,
+                                                thermal=False, lam0=l0, **kw)
+                               for a, l0 in zip(angs, lam0)])
+    return fn
+
+
 def big_calls(p, k4: bool, radiances: bool):
     """K4's, K2's and K5's calls on a path's inputs, as the path launches
     them: ``(k4_fn or None, k2_fn, k5_fn, N)``."""
-    from chip_smoke import radiance_k4
     from pyharp_tpu_torch.rt.disort import kernels as K
 
     ds = p.disort
@@ -214,7 +275,7 @@ def big_calls(p, k4: bool, radiances: bool):
         pr = ds._prepare(p.prop, p.bc, None)
         modes = ds._modes_batched(pr)
         fold = modes["fold"]
-        k4_fn = radiance_k4(ds, pr, modes)[0]
+        k4_fn = modes_call(ds, pr)
         P, g = K.bvp_forward(*fold, ds._ang0)
         return (k4_fn, lambda: K.bvp_forward(*fold, ds._ang0),
                 lambda: K.bvp_backward(*fold[:3], P, g, ds._ang0), modes["N"])
@@ -223,10 +284,10 @@ def big_calls(p, k4: bool, radiances: bool):
     sol, ang = md["sol"], ds._ang0
     k4_fn = None
     if k4:
-        k4_fn = lambda thermal=False: K.stage1_general(
+        k4_fn = lambda thermal=False, sweeps=None: K.stage1_general(
             pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["b_top_lay"],
-            pr["slope"], ang, thermal=thermal, fbeam=pr["fbeam"],
-            mur=md["mur"], lam0=md["lam0"])
+            pr["slope"], ang, thermal=thermal, sweeps=sweeps,
+            fbeam=pr["fbeam"], mur=md["mur"], lam0=md["lam0"])
     a2 = (sol.gp, sol.gm, sol.expd, md["dblk"], pr["albedo"], ang)
     a5 = (sol.gp, sol.gm, sol.expd, md["P"], md["g"], ang)
     return (k4_fn, lambda: K.bvp_forward(*a2), lambda: K.bvp_backward(*a5),
@@ -282,6 +343,9 @@ def big_part(args, res, libs, timed, lib_setups, lib_turns, dev,
             del got, ref
             timed(f"{kind}_k4_{what}", k4_fn, lib_setups, lib_turns,
                   args.reps)
+            if kind == "huge" and not radiances:
+                timed(f"huge_k4_{what}_0_sweeps", lambda: k4_fn(sweeps=0),
+                      lib_setups, lib_turns, args.reps)
         use("new")
         ref = k2_fn()
         use("parent")
@@ -365,12 +429,148 @@ def big_cycles(res, who: str, lib, dev, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def huge_cycles(res, who: str, lib, dev, card: str) -> None:
+    """The part ``huge_cycles`` (module docstring) on one tree's library
+    built with ``PYHARP_BIG_PROFILE`` (``who``: ``new`` or ``parent``)."""
+    import ctypes
+
+    import torch
+
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    K._library = lib
+    counters = (ctypes.c_ulonglong * 9)()
+    reader = lib.lib.pyharp_stage1_general_huge_profile
+    reader.argtypes, reader.restype = [ctypes.c_void_p], ctypes.c_int
+    what = "aerosol_25x128x40_nstr128"
+    p, k4, radiances = big_inputs(what, dev)
+    k4_fn, _, _, N = big_calls(p, k4, radiances)
+    for thermal in (False, True):
+        torch.cuda.synchronize()
+        assert reader(ctypes.addressof(counters)) == 0
+        k4_fn(thermal)
+        torch.cuda.synchronize()
+        assert reader(ctypes.addressof(counters)) == 0
+        units = counters[8]
+        per = [counters[i] / units for i in range(len(K4_HUGE_PHASES))]
+        tot = sum(per)
+        key = f"{who}_cycles_k4_{what}" + ("_thermal" if thermal else "")
+        res[key] = {"units": units, "cycles_per_unit": tot,
+                    "phases": {ph: [c, c / tot]
+                               for ph, c in zip(K4_HUGE_PHASES, per)},
+                    "elements_per_sm": occupancy(lib, "stage1_general_huge",
+                                                 N)}
+        print(f"{key}: {res[key]} [{card}]", flush=True)
+    del p, k4_fn
+    torch.cuda.empty_cache()
+
+
+def global_modes(args, res, libs, timed, dev, card: str) -> None:
+    """The part ``global_modes`` (module docstring)."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import radiance_problem
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    K._library = libs["new"]
+    p = radiance_problem(torch.float32, dev, "cuda", shape=(1, 4, 4, 256))
+    ds = p.disort
+    fn = modes_call(ds, ds._prepare(p.prop, p.bc, None))
+    ref = fn()
+    K._library = libs["parent"]
+    got = fn()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref)), (
+        "K4 of the parent differs from this tree's on the modes at nstr 256")
+    del got, ref
+    setups = {name: (lambda lb=lb: setattr(K, "_library", lb))
+              for name, lb in libs.items()}
+    timed("global_k4_radiance_modes_1x4x4_nstr256", fn, setups,
+          ("parent", "new", "new", "parent"), 1)
+    res["global_k4_modes_launch_in_parent"] = hasattr(
+        libs["parent"].lib, "pyharp_stage1_general_global_modes")
+    del p, ds, fn
+    torch.cuda.empty_cache()
+
+
+def k4_trees(res, libs, timed, dev, card: str) -> None:
+    """The part ``k4_trees`` (module docstring); ``libs`` name -> library,
+    ``parent`` first."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import (extra_problem,
+                                                 radiance_problem)
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from pyharp_tpu_torch.rt.disort.legendre import lepoly
+
+    def aerosol(nstr, first, nlyr):
+        p = extra_problem(500, 128, nlyr, nstr, g=0.8, device=dev,
+                          kernel="cuda", first=first)
+        ds = p.disort
+        pr = ds._prepare(*p.args)
+        lam0 = lepoly(pr["umu0"], 0,
+                      ds._ang0.lam_tables.shape[0] - 1).contiguous()
+        mur = ds._beam_cosine(pr)
+        return lambda sweeps=None: K.stage1_general(
+            pr["ssa_s"], pr["pmom_s"], pr["dtau"], pr["b_top_lay"],
+            pr["slope"], ds._ang0, thermal=False, sweeps=sweeps,
+            fbeam=pr["fbeam"], mur=mur, lam0=lam0)
+
+    def modes(shape):
+        p = radiance_problem(torch.float32, dev, "cuda", shape=shape)
+        return modes_call(p.disort, p.disort._prepare(p.prop, p.bc, None))
+
+    setups = {name: (lambda lb=lb: setattr(K, "_library", lb))
+              for name, lb in libs.items()}
+
+    def turns(what, fn, names, reps):
+        ref = None
+        for name in names:
+            setups[name]()
+            got = fn()
+            if ref is None:
+                ref = got
+            assert all(bool(torch.equal(a, b)) for a, b in zip(got, ref)), (
+                f"K4 of {name} differs from {names[0]}'s on {what}")
+        del ref, got
+        timed(what, fn, setups, tuple(names) + tuple(names[::-1]), reps)
+
+    names = list(libs)
+    for nstr, first, nlyr in ((128, 10, 40), (256, 1, 10)):
+        fn = aerosol(nstr, first, nlyr)
+        what = f"k4_aerosol_{first}x128x{nlyr}_nstr{nstr}"
+        turns(what, fn, names, 2)
+        turns(what + "_0_sweeps", lambda: fn(0), names, 2)
+        del fn
+        torch.cuda.empty_cache()
+    turns("k4_radiance_modes_1x16x8_nstr128", modes((1, 16, 8, 128)), names,
+          2)
+    fn = modes((1, 4, 4, 256))
+    turns("k4_radiance_modes_1x4x4_nstr256", fn, names[1:], 1)
+    setups["parent"]()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    res["k4_radiance_modes_1x4x4_nstr256_parent_one_call_ms"] = (
+        time.perf_counter() - t0) * 1e3
+    print(f"k4_radiance_modes_1x4x4_nstr256, the parent's loop, one call: "
+          f"{res['k4_radiance_modes_1x4x4_nstr256_parent_one_call_ms']:.1f}"
+          f" ms [{card}]", flush=True)
+    del fn
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--parts", default=",".join(PARTS),
                     help=f"comma-separated, of {', '.join(PARTS)}")
+    ap.add_argument("--parent-profile", type=Path, default=None,
+                    help="a tree whose K4 body of N = 33..64 carries the "
+                         "profile marks (huge_cycles; default --parent)")
+    ap.add_argument("--trees", default="",
+                    help="k4_trees: name=dir,... trees beside the parent "
+                         "and this one")
     ap.add_argument("--out-dir", type=Path,
                     default=REPO / "pyharp_tpu_torch" / "_build" / "ab")
     args = ap.parse_args()
@@ -408,6 +608,24 @@ def main() -> None:
         if (pcsrc / HUGE_SOURCES[0]).exists():
             jobs["parent_huge"] = (pcsrc, ab / "parent_huge", HUGE_SOURCES,
                                    ())
+    if "huge_cycles" in parts:
+        pprof = (args.parent_profile or args.parent) / DISORT / "csrc"
+        jobs["huge_profile"] = (K.CSRC, ab / "huge_profile", HUGE_SOURCES,
+                                ("PYHARP_BIG_PROFILE",))
+        if (pprof / HUGE_SOURCES[0]).exists():
+            jobs["parent_huge_profile"] = (pprof, ab / "parent_huge_profile",
+                                           HUGE_SOURCES,
+                                           ("PYHARP_BIG_PROFILE",))
+    if "global_modes" in parts:
+        jobs["new_global"] = (K.CSRC, ab / "new_global", GLOBAL_K4, ())
+        jobs["parent_global"] = (pcsrc, ab / "parent_global", GLOBAL_K4, ())
+    trees = dict(t.split("=") for t in args.trees.split(",") if t)
+    if "k4_trees" in parts:
+        jobs["trees_parent"] = (pcsrc, ab / "trees_parent", K4_WIDE, ())
+        for name, tree in trees.items():
+            jobs[f"trees_{name}"] = (Path(tree) / DISORT / "csrc",
+                                     ab / f"trees_{name}", K4_WIDE, ())
+        jobs["trees_new"] = (K.CSRC, ab / "trees_new", K4_WIDE, ())
     if "big_cycles" in parts:
         jobs["profile"] = (K.CSRC, ab / "profile", BIG_SOURCES,
                            ("PYHARP_BIG_PROFILE",))
@@ -419,7 +637,7 @@ def main() -> None:
     regs = {f"{who}:{k}": v
             for who, lb in built.items()
             for k, v in ptxas_summary(lb.ptxas_log).items()
-            if "wide" in k or "big" in k or "huge" in k
+            if "wide" in k or "big" in k or "huge" in k or "global" in k
             or k.startswith("bvp_backward")
             or k in ("bvp_forward<5>", "bvp_forward<6>", "bvp_forward<7>",
                      "bvp_forward_half<7>")}
@@ -694,6 +912,21 @@ def main() -> None:
                 "parent": built.get("parent_huge", built["new_huge"])}
         res["huge_parent_has_bodies"] = "parent_huge" in built
         big_part(args, res, libs, timed, lib_setups, lib_turns, dev, "huge")
+    if "huge_cycles" in parts:
+        for who, name in (("parent", "parent_huge_profile"),
+                          ("new", "huge_profile")):
+            lb = built.get(name)
+            if lb is not None and hasattr(
+                    lb.lib, "pyharp_stage1_general_huge_profile"):
+                huge_cycles(res, who, lb, dev, card)
+    if "global_modes" in parts:
+        global_modes(args, res, {"new": built["new_global"],
+                                 "parent": built["parent_global"]},
+                     timed, dev, card)
+    if "k4_trees" in parts:
+        k4_trees(res, {name: built[f"trees_{name}"]
+                       for name in ("parent", *trees, "new")},
+                 timed, dev, card)
     if "big_cycles" in parts:
         for who in ("parent", "new"):
             lb = built["profile" if who == "new" else "parent_profile"]
