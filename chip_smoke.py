@@ -219,7 +219,8 @@ or more:
     with float32's resonance floor on every 10th wave, 1e-4 of each
     column's max|uu| away from a resonance);
 22. 66 to 128 streams: the bodies of N = 33..64 (``csrc/*_huge.cu``), their
-    ptxas lines and elements (columns) an SM; ``kernels.route`` sends
+    ptxas lines and elements (columns) an SM, K2's shared memory a block
+    (its system in register tiles over 16 warps); ``kernels.route`` sends
     float32 CUDA tensors at every nstr 2..128 to the kernels; at nstr 66,
     82, 96, 128 (N = 33, 41, 48,
     64), K1 and its beam variant and K4 (m = 0 with a thermal source and a
@@ -235,16 +236,23 @@ or more:
     0 and the 127 modes m >= 1 in one launch, held bit-equal at m = 0 and
     ``RADIANCE_HUGE_MODES``, every mode timed; K2 and K5 twice);
 23. beyond 128 streams: the bodies of N > 64 (``csrc/*_global.cu``, any N,
-    their matrices in global scratch), their ptxas lines, elements
-    (columns) an SM and the scratch a resident block keeps at N = 128;
-    ``kernels.route`` sends float32 CUDA tensors at nstr 130, 256 and 1000
+    their matrices in global scratch, K2's in a thread-block cluster's
+    shared memory up to its reach), their ptxas lines, elements (columns)
+    an SM and the scratch a resident block keeps at N = 128, K2's cluster
+    size, shared memory a block and clusters resident, its slab body's
+    line at the first N past the reach; the cluster sizing of
+    ``kernels.cluster_blocks`` against the library's at every N up to one
+    past the reach (170); ``kernels.route`` sends float32 CUDA tensors at
+    nstr 130, 256 and 1000
     to the kernels, decided before any launch; at nstr 130, 200, 256, 258
     (N = 65, 100, 128, 129: 3, 4, 4 and 5 sets of 32 rows), K1 and its
     beam variant, K4 (m = 0 with a thermal source and a beam, m = 1 with
     a beam; the plain version of both modes in one pass) and K2 bit-equal
     to their plain versions on L 3 x B 37 elements (asserted; K2 built
     without multiply-add contraction there), K2 and K5 on 37 columns x 3
-    layers to phase 3's bound; the off-diagonal K4's 8 Jacobi sweeps leave
+    layers to phase 3's bound; K2 bit-equal to its plain version at nstr
+    340 (the reach, a cluster of 8 blocks) and at 342 (the slab body) on
+    7 columns x 2 layers; the off-diagonal K4's 8 Jacobi sweeps leave
     at N = 128; then through ``kernel="auto"`` at nstr 256 as phase 22:
     aerosol_16str_beam's configuration (its first wave x 128 columns x
     its first 10 layers, ``AEROSOL_GLOBAL``; K4, K2, K5), the isotropic
@@ -329,6 +337,8 @@ GLOBAL_PTXAS = {
     "bvp_forward": "bvp_forward_global<65..>",
     "bvp_backward": "bvp_backward_global<65..>",
 }
+# K2's cluster body at N = 65..170 in ptxas_summary (its slab body above)
+CLUSTER_PTXAS = "bvp_forward_cluster<65..170>"
 AMARS_SW_TOA = 408.17
 
 
@@ -446,6 +456,7 @@ def ptxas_summary(log: str) -> dict[str, str]:
             glob = re.search(r"(stage1_isotropic|stage1_general|bvp_forward|"
                              r"bvp_backward)_global_kernel(ILb([01])E)?",
                              m.group(1))
+            cluster = re.search(r"bvp_forward_cluster_kernel", m.group(1))
             cur = None
             if k:
                 # the second template argument: K1's beam flag, K6's mode,
@@ -477,6 +488,8 @@ def ptxas_summary(log: str) -> dict[str, str]:
                           if glob.group(1) == "bvp_backward" else
                           {"0": "", "1": "_beam"}[flag])
                 cur = f"{glob.group(1)}_global{suffix}<65..>"
+            elif cluster:
+                cur = CLUSTER_PTXAS
             continue
         if cur is None:
             continue
@@ -2333,6 +2346,8 @@ def phase22(dev, card: str, regs: dict, refs: dict | None = None) -> list:
     huge = {n: f"{regs.get(HUGE_PTXAS[n])}, {per_sm[n]} "
                f"{unit.get(n, 'elements')} an SM at N = 64"
             for n in HUGE_PTXAS}
+    huge["bvp_forward"] += (f", {lib.pyharp_bvp_forward_huge_smem(64)} B "
+                            "of shared memory a block (no cluster)")
     say("22", "the bodies of N = 33..64: " + "; ".join(
         f"{n} {v}" for n, v in huge.items()) + f" [{card}]")
 
@@ -2543,10 +2558,77 @@ def global_bodies(regs: dict, N: int) -> dict[str, str]:
             "bvp_forward": lib.pyharp_bvp_forward_global_scratch(N, 1),
             "bvp_backward": lib.pyharp_bvp_backward_global_scratch(N, 1)}
     unit = {"bvp_forward": "columns", "bvp_backward": "columns"}
-    return {n: f"{regs.get(GLOBAL_PTXAS[n])}, {per_sm[n]} "
-               f"{unit.get(n, 'elements')} an SM, {4 * slab[n]} B of global "
-               f"scratch a block at N = {N}"
-            for n in GLOBAL_PTXAS}
+    out = {n: f"{regs.get(GLOBAL_PTXAS[n])}, {per_sm[n]} "
+              f"{unit.get(n, 'elements')} an SM, {4 * slab[n]} B of global "
+              f"scratch a block at N = {N}"
+           for n in GLOBAL_PTXAS}
+    # K2: the cluster body up to its reach, the slab body past it
+    c, smem, clusters, reach = cluster_info(N)
+    past = reach + 1
+    out["bvp_forward"] = (
+        f"cluster body {regs.get(CLUSTER_PTXAS)}, {c} blocks a cluster, "
+        f"{smem} B of shared memory a block, {clusters} clusters resident "
+        f"at N = {N}, no scratch; slab body past N = {reach}: "
+        f"{regs.get(GLOBAL_PTXAS['bvp_forward'])}, {per_sm['bvp_forward']} "
+        f"columns an SM, "
+        f"{4 * lib.pyharp_bvp_forward_global_scratch(past, 1)} B of global "
+        f"scratch a block at N = {past}")
+    return out
+
+
+def cluster_info(N: int) -> tuple[int, int, int, int]:
+    """K2's cluster body at N from the library: blocks a cluster (0 past
+    the reach), shared memory a block in bytes, clusters resident, and
+    the reach."""
+    import ctypes
+
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    out = (ctypes.c_int * 3)()
+    reach = K.build().lib.pyharp_bvp_forward_cluster_info(N, out)
+    return out[0], out[1], out[2], reach
+
+
+def cluster_edge_check(dev) -> str:
+    """K2's cluster sizing of the library against ``kernels.cluster_blocks``
+    at every N = 65..171, then K2 bit-equal to its plain version at the
+    reach (nstr 340, the cluster body at 8 blocks) and one past it (nstr
+    342, the slab body) on 7 columns x 2 layers of K1's eigenstructure
+    with a drawn right-hand side and albedo; returns the line to print."""
+    import torch
+
+    from pyharp_tpu_torch.bench.problems import stage1_inputs
+    from pyharp_tpu_torch.rt.disort import kernels as K
+    from pyharp_tpu_torch.rt.disort.solver import make_static_angles
+
+    reach = K.cluster_reach()
+    assert cluster_info(65)[3] == reach, (cluster_info(65), reach)
+    for N in range(K.HUGE_MAX_N + 1, reach + 2):
+        assert cluster_info(N)[0] == K.cluster_blocks(N), N
+    L, B = 2, 7
+    msgs = []
+    for N in (reach, reach + 1):
+        nstr = 2 * N
+        ang = make_static_angles(nstr, nstr, 0)
+        rng = np.random.default_rng(2400 + nstr)
+        ssa, dtau, btop, slope = stage1_inputs(L, B, seed=2410 + nstr,
+                                               device=dev)
+        gp, gm, _, expd = K.stage1_isotropic(ssa, dtau, btop, slope, ang)[:4]
+        dblk = torch.tensor(rng.uniform(-1.0, 1.0, (2 * N, L, B)),
+                            dtype=torch.float32, device=dev)
+        alb = torch.tensor(rng.uniform(0.0, 0.6, B), dtype=torch.float32,
+                           device=dev)
+        want = K.bvp_forward_plain(gp, gm, expd, dblk, alb, ang)
+        got = K.bvp_forward(gp, gm, expd, dblk, alb, ang)
+        assert all(bool(torch.equal(x, y)) for x, y in zip(got, want)), (
+            f"K2 nstr {nstr}: not bit-equal to the plain version")
+        c = cluster_info(N)[0]
+        msgs.append(f"nstr {nstr} " + (f"(the cluster body, {c} blocks)"
+                                       if c else "(the slab body)"))
+        del gp, gm, expd, dblk, alb, want, got
+    return (f"K2's cluster sizing equal to kernels.cluster_blocks at N = "
+            f"65..{reach + 1} (reach {reach}); K2 bit-equal on {B} columns "
+            f"x {L} layers at " + ", ".join(msgs))
 
 
 def phase23(dev, card: str, regs: dict, refs: dict | None = None) -> list:
@@ -2659,6 +2741,9 @@ def phase23(dev, card: str, regs: dict, refs: dict | None = None) -> list:
               "(BVP): " + "; ".join(msgs) + f" ({STAGE1_TOL}, asserted "
               f"bit-equal; {BVP_TOL}); {time.perf_counter() - t23:.1f} s "
               f"into phase 23 [{card}]")
+    say("23", cluster_edge_check(dev) + f"; {time.perf_counter() - t23:.1f}"
+              f" s into phase 23 [{card}]")
+    torch.cuda.empty_cache()
 
     if refs is None:
         refs = phase23_references(dev)

@@ -26,7 +26,7 @@ __device__ __forceinline__ float big_inf() { return __int_as_float(0x7f800000); 
 // every mark is empty.
 constexpr int kProfPhases = 8;
 #ifdef PYHARP_BIG_PROFILE
-constexpr int kProfWarps = 8;
+constexpr int kProfWarps = 16;
 namespace {
 __shared__ long long big_prof_last[kProfWarps];
 __shared__ unsigned long long big_prof_acc[kProfWarps][kProfPhases];

@@ -5,7 +5,8 @@
 // two halves of 32 rows), R = 4 the 2N = 128 rows of K2's system.  Past
 // N = 64 K2's 2N x (3N + 1) system (98.8 KB at N = 64) nears a block's
 // shared memory: the bodies of global.cuh take any N there, R a run-time
-// count and the matrices in global scratch.
+// count and the matrices in global scratch (K2's in a thread-block
+// cluster's shared memory up to N = 170).
 #pragma once
 
 #include "big.cuh"
@@ -54,4 +55,63 @@ __device__ __forceinline__ void record_bits_sets(const float (&a)[R], int nr,
     bits[h] = __ballot_sync(kBigFull, t + 32 * h > col && k[h] > e);
     carry = fmaxf(carry, __shfl_sync(kBigFull, s[h], 31));
   }
+}
+
+// The highest record (set bit of bits[R], bit t of word h the row position
+// t + 32 h) below position lim, or -1: every word read with a constant
+// index, so the words stay in registers.
+template <int R>
+__device__ __forceinline__ int highest_record_below(const unsigned (&bits)[R],
+                                                    int lim) {
+  int r = -1;
+#pragma unroll
+  for (int h = 0; h < R; ++h) {
+    const int lo = 32 * h;
+    unsigned word = bits[h];
+    if (lim <= lo) {
+      word = 0u;
+    } else if (lim < lo + 32) {
+      word &= (1u << (lim - lo)) - 1u;
+    }
+    if (word != 0u) r = lo + 31 - __clz(static_cast<int>(word));
+  }
+  return r;
+}
+
+// big.cuh's apply_records over R sets: a warp's logical-to-physical row map
+// of a system of up to 32 R rows, lane t holding in p[h] the physical row
+// of the logical row t + 32 h, after the bubble's swaps of the records
+// `bits` (record_bits_sets) in column col.  The swaps amount to one
+// permutation (big.cuh's record_source): position col takes the last
+// record's row, each record the row of the record before it (col's for the
+// first), every other position its own; one gather by shuffles, R * R of
+// them.
+template <int R>
+__device__ __forceinline__ void apply_records_sets(const unsigned (&bits)[R],
+                                                   int col, int t,
+                                                   int (&p)[R]) {
+  int src[R];
+#pragma unroll
+  for (int h = 0; h < R; ++h) {
+    const int x = t + 32 * h;
+    int s = x;
+    if (x == col || ((bits[h] >> t) & 1u) != 0u) {
+      const int r = highest_record_below(bits, x == col ? 32 * R : x);
+      s = r >= 0 ? r : col;
+    }
+    src[h] = s;
+  }
+  int q[R];
+#pragma unroll
+  for (int h = 0; h < R; ++h) {
+    int v = 0;
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const int g = __shfl_sync(kBigFull, p[u], src[h] & 31);
+      if ((src[h] >> 5) == u) v = g;
+    }
+    q[h] = v;
+  }
+#pragma unroll
+  for (int h = 0; h < R; ++h) p[h] = q[h];
 }

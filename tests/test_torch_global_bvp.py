@@ -12,9 +12,11 @@ warp on a system of any size: the records' swaps in row order, each row
 below the pivot on lane r mod 32, back substitution a right-hand side a
 lane.
 
-K2 keeps its 2N x (3N + 1) system in a slab of global scratch and takes
-the huge body's steps (``tests/test_torch_huge_bvp.py``) with the records
-over R sets; K5 gives 32 warps a tile of 32 columns, warp w forming the
+K2's slab body (past the cluster body's reach, N > 170;
+``tests/test_torch_cluster_bvp.py`` models the cluster body) keeps its 2N
+x (3N + 1) system in a slab of global scratch and moves the rows record
+by record (``rotate_records``) with the records over R sets; K5 gives 32
+warps a tile of 32 columns, warp w forming the
 rows w + 32 j below N, the carry up + dn stored once added and E read
 where the sum uses it.
 

@@ -1,8 +1,9 @@
 """Time K1, K4 and K2 at N = 16 (nstr 32), K5 at N = 9..16, K2 at N = 5..7,
 K1, K4 and K2 at N = 17..32, K1, K4, K2 and K5 at N = 33..64, K4 over the
-radiance modes at N = 128, the solve steps they run in, and the plain LU
-against another tree's, in turns, on the card; K1's, K4's and K2's cycles
-by phase at N = 17..32, K4's at N = 64.
+radiance modes at N = 128, K2's bodies above N = 32, the solve steps they
+run in, and the plain LU against another tree's, in turns, on the card;
+K1's, K4's and K2's cycles by phase at N = 17..32, K4's at N = 64, K2's at
+N = 64 and 128.
 
     git archive <commit> pyharp_tpu_torch/rt/disort | tar -x -C _checkout/parent
     python3 tools/wide_ab.py --parent _checkout/parent
@@ -85,6 +86,26 @@ times the tool against itself.  Each part times its calls over
   256) with and without its sweeps, and over the radiance modes at nstr
   256 (1 x 4 x 4; not the parent's loop of 255 launches, timed once
   alone).  A tree without the launch over modes runs a launch a mode.
+- ``k2_trees``: K2's bodies above N = 32 (only ``csrc/bvp_forward_huge.cu``
+  and ``csrc/bvp_forward_global.cu`` built; the stage-1 bodies above N =
+  32 of this tree, built apart, make the inputs) of the parent, of the
+  trees of ``--trees`` and of this tree, checked against one another
+  (bit-equal at N > 64, within the BVP bound at N = 33..64), then timed in
+  turns (the trees in order, then in reverse) on K2's inputs on the paths
+  of ``chip_smoke.py`` phases 22 and 23: aerosol_16str_beam's
+  configuration (10 waves x 128 x 40 at nstr 128; 1 wave x 128 x 10 at
+  256), the isotropic thermal (7 x 255 x 21; 1 x 63 x 11) and beam (25 x
+  63 x 21; 3 x 21 x 11) solves and the radiances' folded modes (1 x 16 x
+  8; 1 x 4 x 4).  Beside each, once, as a yardstick and not the same
+  function: ``torch.linalg.solve`` on the first layer's 2N x 2N systems
+  with the N + 1 right-hand sides over the same columns (the port never
+  calls it).
+- ``k2_cycles``: K2 of this tree and of the parent (or of
+  ``--parent-profile``) built with ``PYHARP_BIG_PROFILE``, once each on the
+  first columns of the isotropic thermal solves of phases 22 (32 of 7 x
+  255 columns, N = 64) and 23 (16 of 63, N = 128), as many as the card
+  holds at once: the ``clock64()`` cycles of each phase (``K2_PHASES``),
+  a warp's over all layers and a column-layer's.
 - ``global_modes``: K4 at N > 64 (only ``csrc/stage1_general_global.cu``
   built) over the 255 modes m >= 1 of the radiances at nstr 256 (1 x 4 x
   4, one wave, as ``chip_smoke.py`` phase 23 cuts them), the parent's
@@ -120,7 +141,8 @@ sys.path.insert(0, str(REPO))
 
 DISORT = Path("pyharp_tpu_torch/rt/disort")
 PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu", "big", "big_cycles",
-         "huge", "huge_cycles", "global_modes", "k4_trees")
+         "huge", "huge_cycles", "global_modes", "k4_trees", "k2_cycles",
+         "k2_trees")
 # the parts that time the whole libraries (the others build the bodies of
 # N = 17..32 or 33..64 alone)
 FULL_PARTS = ("kernels", "k5", "k2_mid", "steps", "plain_lu")
@@ -129,6 +151,10 @@ BIG_SOURCES = ("stage1_isotropic_big.cu", "stage1_general_big.cu",
 HUGE_SOURCES = tuple(s.replace("_big", "_huge") for s in BIG_SOURCES)
 GLOBAL_K4 = ("stage1_general_global.cu",)
 K4_WIDE = ("stage1_general_huge.cu", "stage1_general_global.cu")
+# K2's bodies above N = 32, and the stage-1 bodies that make their inputs
+K2_WIDE = ("bvp_forward_huge.cu", "bvp_forward_global.cu")
+STAGE1_WIDE = ("stage1_isotropic_huge.cu", "stage1_general_huge.cu",
+               "stage1_isotropic_global.cu", "stage1_general_global.cu")
 # the phases of BIG_PROF_MARK in the two bodies
 K4_PHASES = ("moments, contractions and Cholesky", "K = Lc^T Vhat Lc",
              "sweeps", "D and the eigenvectors", "beam particular",
@@ -138,8 +164,11 @@ K4_HUGE_PHASES = ("moments, contractions and Cholesky", "K = Lc^T Vhat Lc",
                   "sweeps: the chain to the next a_pq (and the p loops)",
                   "sweeps: row work and barrier", "D and the eigenvectors",
                   "gp, gm", "beam particular", "thermal LUs")
-K2_PHASES = ("staging", "block build", "swaps", "elimination",
-             "back substitution", "stores", "carry")
+# the phases of BIG_PROF_MARK in K2's bodies (the big, huge, slab and
+# cluster bodies; the last only in the cluster body)
+K2_PHASES = ("staging", "block build", "pivot search and row moves",
+             "updates", "back substitution", "stores", "carry",
+             "cluster barrier waits")
 K1_PHASES = ("table staging", "half choice and bisection", "Newton",
              "eigenvector max", "eigenvector normalised and stored",
              "thermal particular", "beam LU, zs and beam particular",
@@ -223,9 +252,34 @@ def big_inputs(what: str, dev):
     if what == "iso_beam_125x64x20_nstr128":
         return extra_problem(500, 64, 20, 128, beam=True, device=dev,
                              kernel="cuda", first=125), False, False
-    assert what == "radiances_2x16x10_nstr128", what
+    if what == "radiances_2x16x10_nstr128":
+        return radiance_problem(torch.float32, dev, "cuda",
+                                shape=(2, 16, 10, 128)), True, True
+    # the paths of chip_smoke.py phases 22 and 23 (K2's inputs there)
+    if what == "aerosol_10x128x40_nstr128":
+        return extra_problem(500, 128, 40, 128, g=0.8, device=dev,
+                             kernel="cuda", first=10), True, False
+    if what == "iso_thermal_7x255x21_nstr128":
+        return bench_problem(7, 255, 21, 128, torch.float32, dev,
+                             "cuda"), False, False
+    if what == "iso_beam_25x63x21_nstr128":
+        return extra_problem(500, 63, 21, 128, beam=True, device=dev,
+                             kernel="cuda", first=25), False, False
+    if what == "radiances_1x16x8_nstr128":
+        return radiance_problem(torch.float32, dev, "cuda",
+                                shape=(1, 16, 8, 128)), True, True
+    if what == "aerosol_1x128x10_nstr256":
+        return extra_problem(500, 128, 10, 256, g=0.8, device=dev,
+                             kernel="cuda", first=1), True, False
+    if what == "iso_thermal_1x63x11_nstr256":
+        return bench_problem(1, 63, 11, 256, torch.float32, dev,
+                             "cuda"), False, False
+    if what == "iso_beam_3x21x11_nstr256":
+        return extra_problem(500, 21, 11, 256, beam=True, device=dev,
+                             kernel="cuda", first=3), False, False
+    assert what == "radiances_1x4x4_nstr256", what
     return radiance_problem(torch.float32, dev, "cuda",
-                            shape=(2, 16, 10, 128)), True, True
+                            shape=(1, 4, 4, 256)), True, True
 
 
 BIG_PATHS = ("aerosol_100x128x40_nstr64", "aerosol_200x128x40_nstr48",
@@ -233,6 +287,69 @@ BIG_PATHS = ("aerosol_100x128x40_nstr64", "aerosol_200x128x40_nstr48",
              "radiances_8x64x20_nstr64")
 HUGE_PATHS = ("aerosol_25x128x40_nstr128", "iso_thermal_8x512x20_nstr128",
               "iso_beam_125x64x20_nstr128", "radiances_2x16x10_nstr128")
+# K2's paths of k2_trees: chip_smoke.py phase 22's at nstr 128, phase 23's
+# at nstr 256
+K2_PATHS = ("aerosol_10x128x40_nstr128", "iso_thermal_7x255x21_nstr128",
+            "iso_beam_25x63x21_nstr128", "radiances_1x16x8_nstr128",
+            "aerosol_1x128x10_nstr256", "iso_thermal_1x63x11_nstr256",
+            "iso_beam_3x21x11_nstr256", "radiances_1x4x4_nstr256")
+# k2_cycles: (path, its first columns), as many columns as the card holds
+# at once, so that each block (cluster) runs one column
+K2_CYCLE_PATHS = (("iso_thermal_7x255x21_nstr128", 32),
+                  ("iso_thermal_1x63x11_nstr256", 16))
+
+
+class _K2Inputs(Exception):
+    """Raised by :func:`k2_inputs`'s stand-in for K2 with its arguments."""
+
+
+def k2_inputs(what: str, dev):
+    """K2's arguments on a path of ``big_inputs``, as its solve passes them
+    (the folded modes on the radiances): the solve runs stage 1 with the
+    library in use and stops at K2's call."""
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    p, _, radiances = big_inputs(what, dev)
+    ds = p.disort
+    real = K.bvp_forward
+
+    def capture(*a):
+        raise _K2Inputs(a)
+
+    K.bvp_forward = capture
+    try:
+        if radiances:
+            ds._modes_batched(ds._prepare(p.prop, p.bc, None))
+        else:
+            ds._solve_mode(ds._prepare(*p.args))
+    except _K2Inputs as e:
+        return e.args[0]
+    finally:
+        K.bvp_forward = real
+    raise AssertionError(f"{what}: the solve did not reach K2")
+
+
+def linalg_solve_ms(a2, reps: int) -> float:
+    """The yardstick of k2_trees: ``torch.linalg.solve`` on the first
+    layer's 2N x 2N systems (the carry above it zero) with K2's N + 1
+    right-hand sides, over the same columns; ms a call."""
+    import torch
+
+    from chip_smoke import cuda_ms
+
+    gp, gm, expd, dblk = (x[..., 0, :] if x.dim() > 2 else x
+                          for x in a2[:4])
+    N, B = gp.shape[0], gp.shape[-1]
+    gpE = gp * expd[None]
+    M = torch.cat([-torch.cat([gm, gpE], dim=1),
+                   torch.cat([gpE, gm], dim=1)], dim=0)
+    eye = torch.eye(N, dtype=gp.dtype, device=gp.device)
+    sel = torch.cat([torch.zeros_like(eye), eye])[:, :, None].expand(
+        2 * N, N, B)
+    rhs = torch.cat([sel, dblk[:, None]], dim=1)
+    A = M.permute(2, 0, 1).contiguous()
+    R = rhs.permute(2, 0, 1).contiguous()
+    return cuda_ms(lambda: torch.linalg.solve(A, R), reps)
 
 
 def modes_call(ds, pr):
@@ -465,6 +582,96 @@ def huge_cycles(res, who: str, lib, dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def k2_cycles(res, who: str, lib, stage1, dev, card: str) -> None:
+    """The part ``k2_cycles`` (module docstring) on one tree's K2 library
+    built with ``PYHARP_BIG_PROFILE`` (``who``: ``new`` or ``parent``);
+    ``stage1`` makes the inputs."""
+    import ctypes
+
+    import torch
+
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    counters = (ctypes.c_ulonglong * 9)()
+    for what, cols in K2_CYCLE_PATHS:
+        N = int(what.rsplit("nstr", 1)[1]) // 2
+        name = ("bvp_forward_huge" if N <= K.HUGE_MAX_N
+                else "bvp_forward_global")
+        reader = getattr(lib.lib, f"pyharp_{name}_profile", None)
+        if reader is None:              # a tree without the marks
+            continue
+        reader.argtypes, reader.restype = [ctypes.c_void_p], ctypes.c_int
+        K._library = stage1
+        a2 = k2_inputs(what, dev)
+        a2 = tuple(x[..., :cols].contiguous() for x in a2[:5]) + (a2[5],)
+        L = a2[0].shape[2]
+        K._library = lib
+        torch.cuda.synchronize()
+        assert reader(ctypes.addressof(counters)) == 0
+        K.bvp_forward(*a2)
+        torch.cuda.synchronize()
+        assert reader(ctypes.addressof(counters)) == 0
+        units = counters[8]
+        per = [counters[i] / units for i in range(len(K2_PHASES))]
+        tot = sum(per)
+        key = f"{who}_cycles_k2_{what}_first{cols}"
+        # each block (cluster) runs one column: a warp's cycles over L
+        # layers are that column's
+        res[key] = {"units": units, "cycles_per_unit": tot,
+                    "cycles_per_column_layer": tot / L,
+                    "phases": {ph: [c, c / tot]
+                               for ph, c in zip(K2_PHASES, per)}}
+        print(f"{key}: {res[key]} [{card}]", flush=True)
+        del a2
+        torch.cuda.empty_cache()
+
+
+def k2_trees(res, libs, stage1, timed, dev, card: str, reps: int) -> None:
+    """The part ``k2_trees`` (module docstring); ``libs`` name -> K2
+    library, ``parent`` first; ``stage1`` makes the inputs."""
+    import torch
+
+    from chip_smoke import bvp_check
+    from pyharp_tpu_torch.rt.disort import kernels as K
+
+    setups = {name: (lambda lb=lb: setattr(K, "_library", lb))
+              for name, lb in libs.items()}
+    names = list(libs)
+    for what in K2_PATHS:
+        K._library = stage1
+        a2 = k2_inputs(what, dev)
+        N = a2[0].shape[0]
+        fn = lambda: K.bvp_forward(*a2)
+        ref = None
+        agree = []                 # the trees that agree with the parent
+        for name in names:
+            setups[name]()
+            got = fn()
+            if ref is None:
+                ref = got
+            try:
+                if N > K.HUGE_MAX_N:
+                    assert all(bool(torch.equal(a, b))
+                               for a, b in zip(got, ref)), (
+                        f"K2 of {name} differs from {names[0]}'s on {what}")
+                else:
+                    bvp_check(got, ref, f"K2 of {name} on {what}")
+                agree.append(name)
+            except AssertionError as e:
+                res[f"k2_{what}_{name}_fails"] = str(e)
+                print(f"k2_{what}: {e} [{card}]", flush=True)
+        del ref, got
+        timed(f"k2_{what}", fn, setups, tuple(agree) + tuple(agree[::-1]),
+              reps)
+        res[f"k2_{what}_linalg_solve_one_layer_ms"] = linalg_solve_ms(
+            a2, reps)
+        print(f"k2_{what}: torch.linalg.solve on one layer "
+              f"{res[f'k2_{what}_linalg_solve_one_layer_ms']:.3f} ms "
+              f"(L = {a2[0].shape[2]}) [{card}]", flush=True)
+        del a2, fn
+        torch.cuda.empty_cache()
+
+
 def global_modes(args, res, libs, timed, dev, card: str) -> None:
     """The part ``global_modes`` (module docstring)."""
     import torch
@@ -566,11 +773,12 @@ def main() -> None:
     ap.add_argument("--parts", default=",".join(PARTS),
                     help=f"comma-separated, of {', '.join(PARTS)}")
     ap.add_argument("--parent-profile", type=Path, default=None,
-                    help="a tree whose K4 body of N = 33..64 carries the "
-                         "profile marks (huge_cycles; default --parent)")
+                    help="a tree whose K4 body of N = 33..64 (K2's bodies "
+                         "above N = 32) carries the profile marks "
+                         "(huge_cycles, k2_cycles; default --parent)")
     ap.add_argument("--trees", default="",
-                    help="k4_trees: name=dir,... trees beside the parent "
-                         "and this one")
+                    help="k4_trees, k2_trees: name=dir,... trees beside "
+                         "the parent and this one")
     ap.add_argument("--out-dir", type=Path,
                     default=REPO / "pyharp_tpu_torch" / "_build" / "ab")
     args = ap.parse_args()
@@ -626,6 +834,21 @@ def main() -> None:
             jobs[f"trees_{name}"] = (Path(tree) / DISORT / "csrc",
                                      ab / f"trees_{name}", K4_WIDE, ())
         jobs["trees_new"] = (K.CSRC, ab / "trees_new", K4_WIDE, ())
+    if {"k2_cycles", "k2_trees"} & set(parts):
+        jobs["k2_stage1"] = (K.CSRC, ab / "k2_stage1", STAGE1_WIDE, ())
+    if "k2_cycles" in parts:
+        pprof = (args.parent_profile or args.parent) / DISORT / "csrc"
+        jobs["k2_profile_parent"] = (pprof, ab / "k2_profile_parent",
+                                     K2_WIDE, ("PYHARP_BIG_PROFILE",))
+        jobs["k2_profile_new"] = (K.CSRC, ab / "k2_profile_new", K2_WIDE,
+                                  ("PYHARP_BIG_PROFILE",))
+    if "k2_trees" in parts:
+        jobs["k2_trees_parent"] = (pcsrc, ab / "k2_trees_parent", K2_WIDE,
+                                   ())
+        for name, tree in trees.items():
+            jobs[f"k2_trees_{name}"] = (Path(tree) / DISORT / "csrc",
+                                        ab / f"k2_trees_{name}", K2_WIDE, ())
+        jobs["k2_trees_new"] = (K.CSRC, ab / "k2_trees_new", K2_WIDE, ())
     if "big_cycles" in parts:
         jobs["profile"] = (K.CSRC, ab / "profile", BIG_SOURCES,
                            ("PYHARP_BIG_PROFILE",))
@@ -927,6 +1150,14 @@ def main() -> None:
         k4_trees(res, {name: built[f"trees_{name}"]
                        for name in ("parent", *trees, "new")},
                  timed, dev, card)
+    if "k2_cycles" in parts:
+        for who in ("parent", "new"):
+            k2_cycles(res, who, built[f"k2_profile_{who}"],
+                      built["k2_stage1"], dev, card)
+    if "k2_trees" in parts:
+        k2_trees(res, {name: built[f"k2_trees_{name}"]
+                       for name in ("parent", *trees, "new")},
+                 built["k2_stage1"], timed, dev, card, args.reps)
     if "big_cycles" in parts:
         for who in ("parent", "new"):
             lb = built["profile" if who == "new" else "parent_profile"]
